@@ -11,8 +11,7 @@ model/externaldata.cpp:366-404).
 Besides the dynamic fields, the constant bundle carries every input of the
 thermodynamics (air temperature, humidity, pressure, radiation,
 precipitation, the slab ocean's nudging targets and mixed-layer depth). The
-NetCDF dataset providers are not ported yet (ROADMAP A.9): ``make_provider``
-raises for any configuration that needs them.
+NetCDF dataset providers live in nextsim_tpu_torch/forcing/datasets.py.
 """
 
 from __future__ import annotations
@@ -100,21 +99,21 @@ class ConstantForcing:
 
 
 def make_provider(cfg, grid, dtype=torch.float32, device="cpu"):
+    """The constant provider, or the NetCDF dataset provider whenever a
+    dataset is configured (including the default ``asr`` atmosphere, which
+    falls back to the constants while its files are absent)."""
     atm = cfg["setup.atmosphere-type"]
     ocn = cfg["setup.ocean-type"]
-    # ETOPO bathymetry rides the dataset provider; with the file absent the
-    # constant depth is the documented fallback (same rule and same path as
-    # nextsim_tpu.forcing.bathymetry.etopo_path)
-    etopo_active = cfg["setup.bathymetry-type"] == "etopo" and os.path.exists(
-        os.path.join(
-            os.environ.get("NEXTSIM_DATA_DIR", "."), cfg["setup.bathymetry-file"]
-        )
-    )
+    # ETOPO bathymetry rides the dataset provider (reference: initBathymetry,
+    # fe.cpp:13749-13777); with the file absent the constant depth is the
+    # documented fallback
+    etopo_active = False
+    if cfg["setup.bathymetry-type"] == "etopo":
+        from nextsim_tpu_torch.forcing.bathymetry import etopo_path
+
+        etopo_active = os.path.exists(etopo_path(cfg))
     if atm == "constant" and ocn == "constant" and not etopo_active:
         return ConstantForcing(cfg, grid, dtype, device)
-    raise NotImplementedError(
-        f"forcing atmosphere-type={atm!r}, ocean-type={ocn!r}"
-        + (" with ETOPO bathymetry" if etopo_active else "")
-        + " needs the NetCDF dataset providers, which the PyTorch port has "
-        "not ported yet (ROADMAP A.9); use constant forcing"
-    )
+    from nextsim_tpu_torch.forcing.datasets import DatasetForcing
+
+    return DatasetForcing(cfg, grid, dtype, device)

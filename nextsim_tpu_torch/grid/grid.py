@@ -170,8 +170,13 @@ class Grid:
                 dx=cfg["grid.resolution"], nx=cfg["grid.nx"], ny=cfg["grid.ny"]
             )
         if preset == "arctic_etopo":
-            raise NotImplementedError(
-                "grid.preset=arctic_etopo needs the ETOPO dataset reader, which "
-                "the PyTorch port has not ported yet (ROADMAP A.9)"
+            # real coastline + water depth from ETOPO (reference: the meshed
+            # coastline, mesh/README.md, + initBathymetry fe.cpp:13749-13777)
+            from nextsim_tpu_torch.forcing.bathymetry import arctic_etopo_grid
+
+            grid, _depth = arctic_etopo_grid(
+                dx=cfg["grid.resolution"], nx=cfg["grid.nx"], ny=cfg["grid.ny"],
+                filename=cfg["setup.bathymetry-file"],
             )
+            return grid
         raise ValueError(f"unknown grid preset {preset!r}")

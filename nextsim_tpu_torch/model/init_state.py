@@ -3,9 +3,10 @@ nextsim_tpu/model/init_state.py).
 
 The idealised schemes of the reference's initIce family (constantIce,
 reference: model/finiteelement.cpp:11662-11753, for ``constant`` and
-``constant_partial``), the constant slab ocean (initSlabOcean,
-fe.cpp:11307-11351) and checkConsistency (fe.cpp:11515-11634). The
-dataset-driven ice schemes are not ported yet and raise.
+``constant_partial``), the dispatch to the dataset-driven schemes of
+nextsim_tpu_torch/model/init_ice_datasets.py (the other 20 names), the
+constant slab ocean (initSlabOcean, fe.cpp:11307-11351) and checkConsistency
+(fe.cpp:11515-11634).
 
 The per-cell random field of the cohesion comes from a ``torch.Generator``,
 which cannot reproduce ``jax.random.uniform``; pass ``random_number`` to start
@@ -19,6 +20,7 @@ import torch
 
 from nextsim_tpu_torch.core import constants as phys
 from nextsim_tpu_torch.core.state import State
+from nextsim_tpu_torch.utils import dates
 
 
 def freezing_point(cfg, sss):
@@ -51,28 +53,56 @@ def init_state(cfg, grid, dtype=torch.float32, device="cpu", seed: int = 7,
 
 
 def _init_slab_ocean(cfg, grid, state) -> State:
-    ocean_type = cfg["setup.ocean-type"]
-    if ocean_type != "constant":
-        raise NotImplementedError(
-            f"setup.ocean-type={ocean_type!r} initialises from the ocean "
-            "datasets, which the PyTorch port has not ported yet (ROADMAP A.9)"
+    if cfg["setup.ocean-type"] == "constant":
+        # (reference: fe.cpp:11312-11315)
+        mu = cfg["thermo.freezingpoint_mu"]
+        return state.replace(
+            sst=torch.full_like(state.sst, 1.0), sss=torch.full_like(state.sss, 1.8 / mu)
         )
-    # (reference: fe.cpp:11312-11315)
-    mu = cfg["thermo.freezingpoint_mu"]
-    return state.replace(
-        sst=torch.full_like(state.sst, 1.0), sss=torch.full_like(state.sss, 1.8 / mu)
-    )
+    # dataset oceans keep State.zeros' slab values, as the JAX package does
+    return state
 
 
 def _init_ice(cfg, grid, state, mask) -> State:
     ice_type = cfg["setup.ice-type"]
     if ice_type in ("constant", "constant_partial"):
         return _constant_ice(cfg, grid, state, mask, partial=ice_type == "constant_partial")
-    raise NotImplementedError(
-        f"setup.ice-type={ice_type!r} initialises from the ice datasets, which "
-        "the PyTorch port has not ported yet (ROADMAP A.9); use constant or "
-        "constant_partial"
-    )
+
+    # dataset-backed schemes (reference: initIce dispatch, fe.cpp:11396-11515;
+    # config names per the str2conc map, fe.cpp:1328-1347)
+    from nextsim_tpu_torch.model import init_ice_datasets as iid
+
+    time_init_str = cfg["simul.time_init"]
+    t0 = dates.string_to_datenum(time_init_str) if time_init_str else 0.0
+
+    if ice_type in ("topaz4_rean", "topaz4", "topaz"):
+        return iid.topaz_like_ice(cfg, grid, state, mask, "topaz", t0)
+    if ice_type in ("topaz4_nrt", "topaz5_nrt"):
+        return iid.topaz_like_ice(cfg, grid, state, mask, "topaz_nrt", t0)
+    if ice_type == "glorys12":
+        return iid.topaz_like_ice(cfg, grid, state, mask, "glorys12", t0)
+    if ice_type in (
+        "topaz4_nrt-amsr2", "topaz4_nrt-amsr2-osisaf",
+        "topaz4_nrt-amsr2-osisaf-nic", "topaz4_nrt-amsr2-osisaf-nic_weekly",
+    ):
+        return iid.topaz_amsr2_osisaf_ice(cfg, grid, state, mask, t0)
+    if ice_type in ("cs2-smos", "cs2-smos-amsr2"):
+        return iid.cs2_smos_ice(cfg, grid, state, mask, t0)
+    if ice_type in ("amsr2", "amsr2-cst_thick"):
+        return iid.obs_conc_ice(cfg, grid, state, mask, t0, "ice_amsr2")
+    if ice_type == "amsre":
+        return iid.obs_conc_ice(cfg, grid, state, mask, t0, "ice_amsre")
+    if ice_type == "piomas":
+        return iid.piomas_ice(cfg, grid, state, mask, t0)
+    if ice_type == "smos":
+        return iid.smos_ice(cfg, grid, state, mask, t0)
+    if ice_type == "nemo":
+        return iid.model_output_ice(cfg, grid, state, mask, t0, "ice_nemo")
+    if ice_type == "cice":
+        return iid.model_output_ice(cfg, grid, state, mask, t0, "ice_cice")
+    if ice_type == "topaz4_rean-osisaf-icesat":
+        return iid.topaz_osisaf_icesat_ice(cfg, grid, state, mask, t0)
+    raise NotImplementedError(f"unknown ice init scheme {ice_type!r}")
 
 
 def _constant_ice(cfg, grid, state, mask, partial: bool) -> State:

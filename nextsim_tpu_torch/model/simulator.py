@@ -4,8 +4,10 @@ nextsim_tpu/model/simulator.py).
 One model step, as FiniteElement::step (reference: model/finiteelement.cpp:
 7963-8289):
 
+    forcing (+ the outer run's fields when nested), on the host  ->
     thermodynamics (pointwise)  ->  dynamics (momentum substeps)  ->
-    transport (advection + ridging)  ->  checkFieldsFast violations
+    transport (advection + ridging)  ->  nesting sponge  ->
+    checkFieldsFast violations
 
 PyTorch runs eagerly, so there is no jit and no scan: ``step`` runs one step
 and ``step_chunk`` runs ``tpu.steps_per_call`` steps as a Python loop. The
@@ -39,8 +41,9 @@ from nextsim_tpu_torch.core.state import State, to_host
 from nextsim_tpu_torch.forcing.providers import make_provider
 from nextsim_tpu_torch.grid.grid import Grid
 from nextsim_tpu_torch.model import checks, init_state, params
+from nextsim_tpu_torch.model.nesting_source import make_nesting_source
 from nextsim_tpu_torch.model.params_thermo import thermo_params
-from nextsim_tpu_torch.ops import momentum, thermo, transport
+from nextsim_tpu_torch.ops import momentum, nesting, thermo, transport
 from nextsim_tpu_torch.output.drifters import instantiate_drifters
 from nextsim_tpu_torch.utils import async_writer, dates
 from nextsim_tpu_torch.utils.logging import get_logger
@@ -53,9 +56,6 @@ def _unported(cfg) -> Optional[str]:
     """The first configured subsystem the port does not have yet, as
     'option (ROADMAP item)', or None."""
     rules = [
-        (cfg["nesting.use_nesting"], "nesting.use_nesting=true (ROADMAP A.9, datasets and nesting)"),
-        (cfg["restart.start_from_restart"] and cfg["setup.use_assimilation"],
-         "setup.use_assimilation=true (ROADMAP A.9, datasets and nesting)"),
         (cfg["wave_coupling.num_fsd_bins"] > 0, "wave_coupling.num_fsd_bins > 0 (ROADMAP A.10, waves)"),
         (cfg["nextwim.use_wim"], "nextwim.use_wim=true (ROADMAP A.10, waves)"),
         (cfg["statevector.ensemble_member"] > 0, "statevector.ensemble_member > 0 (ROADMAP A.11, ensembles)"),
@@ -116,6 +116,18 @@ class Simulator:
         # --- state + forcing ----------------------------------------------
         self.state = init_state.init_state(cfg, self.grid, dtype=self.dtype, device=self.device)
         self.forcing_provider = make_provider(cfg, self.grid, self.dtype, self.device)
+
+        # nesting sponge (reference: forcingNesting fe.cpp:11060-11130):
+        # (params, per-cell weight on the device, outer-run source)
+        self.nesting = None
+        self._nest_keys = None
+        self._nest_partial_warned = False
+        if cfg["nesting.use_nesting"]:
+            npar = nesting.NestingParams.from_config(cfg)
+            dist = nesting.distance_to_open_boundary(self.grid)
+            weight = on_dev(nesting.nudge_weight(dist, npar, self.dt))
+            source = make_nesting_source(cfg, self.grid, self.dtype, self.device)
+            self.nesting = (npar, weight, source)
         self.diag = {}
         self.last_forcing = None
         self._pending_viol = None
@@ -158,6 +170,11 @@ class Simulator:
                 # audit the restarted fields (reference: M_check_restart ->
                 # checkFields at init, fe.cpp:7065-7070)
                 self._check_fields_detailed()
+            # DataAssimilation at restart (reference: init() fe.cpp:7055-7058
+            # -> DataAssimilation fe.cpp:509-525: slab ocean then ice, then
+            # consistency check)
+            if cfg["setup.use_assimilation"]:
+                self.data_assimilation()
         if cfg["restart.write_initial_restart"]:
             from nextsim_tpu_torch.output.restart import write_restart
 
@@ -168,8 +185,9 @@ class Simulator:
         """The state as host numpy arrays, for host consumers (IO, checks)."""
         return to_host(self.state)
 
-    def _step_fn(self, state, forcing, tinfo):
-        """One model step on the device: (state', diag, violation flags)."""
+    def _step_fn(self, state, forcing, tinfo, nest=None):
+        """One model step on the device: (state', diag, violation flags).
+        ``nest`` holds the outer run's fields to relax toward, or is None."""
         ga = dict(self.grid_arrays)
         # cohesion field for this step (reference: calcCohesion, fe.cpp:3909-3914)
         ga["cohesion"] = self.c_fix + self.c_alea * state.random_number
@@ -192,30 +210,75 @@ class Simulator:
                 state, ga, self.dt, self.transport_params
             )
             diag.update(vdiag)
+        # ---- nesting sponge: relax toward the outer run (reference:
+        # nestingIce/nestingDynamics each step, fe.cpp:8172-8192)
+        if nest is not None:
+            npar, weight, _source = self.nesting
+            state = nesting.apply_nesting(state, nest, weight, npar)
         return state, diag, checks.violations(state, use_young_ice=dyn.use_young_ice)
 
     def _advance(self) -> None:
-        """One step: forcing and time flags at the step's time, the device
-        step, the step counter; violations accumulate on the device."""
+        """One step: forcing, the outer run's fields and the time flags at
+        the step's time (host, timed as "forcing"), the device step, the
+        step counter; violations accumulate on the device."""
+        self.timer.tick("forcing")
         forcing = self._next_forcing()
-        self.state, self.diag, viol = self._step_fn(self.state, forcing, self.time_info())
+        nest = None
+        if self.nesting is not None:
+            outer = self.nesting[2].fields_at(self.current_time + self.dt * dates.DAYS_IN_SEC)
+            if self.cfg["nesting.use_ocean_nesting"] and outer and "sst" in outer and "sss" in outer:
+                # outer-run SST/SSS become the slab-ocean nudging targets
+                # (reference: forcingOcean ocean-nesting branch,
+                # fe.cpp:11133-11143)
+                forcing = forcing.replace(ocean_temp=outer["sst"], ocean_salt=outer["sss"])
+            nest = self._nest_fields(outer)
+        tinfo = self.time_info()
+        self.timer.tock("forcing")
+        self.timer.tick("device_step")
+        self.state, self.diag, viol = self._step_fn(self.state, forcing, tinfo, nest)
         self.last_forcing = forcing  # for output.save_forcing_fields
         self.pcpt += 1
         if self.check_fast:
             prev = self._pending_viol
             self._pending_viol = viol if prev is None else torch.maximum(prev, viol)
+        self.timer.tock("device_step")
 
     def _next_forcing(self):
         return self.forcing_provider(
             self.current_time + self.dt * dates.DAYS_IN_SEC, self.time_init
         )
 
+    def _nest_fields(self, outer):
+        """The outer fields to relax toward this step, or None to skip the
+        relaxation: no outer data yet, or a record missing fields that an
+        earlier record had (a partial set would relax the missing fields
+        toward zero in the JAX package's fixed-structure program, which
+        turns such steps off instead). A record with new fields extends the
+        set."""
+        if not outer:
+            return None
+        keys = self._nest_keys
+        if keys is None or any(k not in keys for k in outer):
+            if keys is not None:
+                self.log.info(
+                    f"nesting: outer data gained fields {sorted(set(outer) - set(keys))}; "
+                    "extending the relaxation set"
+                )
+            self._nest_keys = keys = tuple(sorted(set(outer) | set(keys or ())))
+        if any(k not in outer for k in keys):
+            if not self._nest_partial_warned:
+                self._nest_partial_warned = True
+                self.log.info(
+                    f"nesting: outer record missing fields {sorted(set(keys) - set(outer))}; "
+                    "relaxation skipped for such steps"
+                )
+            return None
+        return {k: outer[k] for k in keys}
+
     def step(self) -> None:
         """Advance one model step."""
         self.timer.tick("step")
-        self.timer.tick("device_step")
         self._advance()
-        self.timer.tock("device_step")
         self.timer.tick("outputs")
         self._check_outputs()
         self.timer.tock("outputs")
@@ -233,12 +296,12 @@ class Simulator:
         violation flags back once at the end of the chunk."""
         k = self._chunk_k if k is None else k
         self.timer.tick("step")
-        self.timer.tick("device_step")
         for _ in range(k):
             self._advance()
             if self.moorings is not None:
+                self.timer.tick("device_step")
                 self.moorings.update_means(self.state, self.diag, self.last_forcing)
-        self.timer.tock("device_step")
+                self.timer.tock("device_step")
         self.timer.tick("outputs")
         self._check_outputs(skip_moorings_means=True)
         self.timer.tock("outputs")
@@ -284,6 +347,36 @@ class Simulator:
         msgs = checks.check_fields(hstate, lf, self.dyn.use_young_ice)
         if msgs:
             self._crash_dump(msgs)
+
+    def data_assimilation(self) -> None:
+        """Full restart-time data assimilation (reference: DataAssimilation,
+        fe.cpp:509-525): assimilateSlabOcean then assimilateIce (the OSISAF/
+        AMSR2/NIC blends, fe.cpp:12124-12404), then checkConsistency."""
+        from nextsim_tpu_torch.model.init_ice_datasets import (
+            assimilate_ice,
+            assimilate_slab_ocean,
+        )
+
+        mask = self.grid_arrays["mask"]
+        forcing = self.forcing_provider(self.current_time, self.time_init)
+        mu = self.cfg["thermo.freezingpoint_mu"]
+        fp = lambda sss: -mu * sss  # noqa: E731  (linear freezing point)
+        self.state = assimilate_slab_ocean(
+            self.cfg, self.state, forcing.ocean_temp, forcing.ocean_salt, fp
+        )
+        self.state = assimilate_ice(self.cfg, self.grid, self.state, mask, self.time_init)
+        self.state = init_state.check_consistency(self.cfg, self.state, mask)
+
+    def assimilate(self, obs_conc) -> None:
+        """Assimilate an observed concentration analysis (host array or
+        tensor) into the state (reference: DataAssimilation/assimilateIce,
+        fe.cpp:509-525, 11634-11662): replace conc, track conc_upd,
+        re-check consistency."""
+        from nextsim_tpu_torch.model.init_ice_datasets import assimilate_conc
+
+        mask = self.grid_arrays["mask"]
+        self.state = assimilate_conc(self.state, obs_conc, mask, min_h=self.cfg["dynamics.min_h"])
+        self.state = init_state.check_consistency(self.cfg, self.state, mask)
 
     def _check_outputs(self, skip_moorings_means: bool = False) -> None:
         """Per-step output handling (reference: checkOutputs, fe.cpp:

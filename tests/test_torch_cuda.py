@@ -14,6 +14,11 @@ magnitude; CUDA's exp/log/pow/sqrt and its reciprocal-based division by a
 Python scalar differ from the CPU's by an ulp or so), and a short thermo-on
 run stays finite and goes through the substep kernel.
 
+The dataset slice brings grounding (Lemieux C_BU on shallow water), an SSH
+gradient and varying currents into the kernel's node stage: one test holds
+the kernel against the plain version on such a state, and one checks that
+``DatasetForcing`` hands the card the same planes as the CPU (bitwise).
+
 Tolerances: the kernel is built without multiply-add contraction and
 transcribes the plain version's term order, so bbm and evp agree bitwise;
 mEVP's ``(vtm - vt) / (beta + 1)`` is a division by a Python scalar, which
@@ -130,3 +135,112 @@ def test_thermo_on_run_stays_finite(cuda):
     for name in ("conc", "thick", "tice", "sst", "sss", "conc_young", "h_young", "vt_u"):
         assert bool(torch.isfinite(getattr(sim.state, name)).all()), name
     assert float(sim.state.conc.max()) > 0.5 and "qa" in sim.diag
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+def test_kernel_matches_plain_with_grounding_ssh_and_currents(cuda, dtype_name):
+    """Shallow water under thick ice (C_BU > 0), a sloping SSH and varying
+    currents: the terms of the node stage that constant forcing leaves at
+    zero or uniform."""
+    sim = Simulator(Config(overrides=dict(SQUARE, **{"tpu.dtype": dtype_name,
+                                                     "ideal_simul.init_thickness": 2.0})), device="cuda")
+    sim.step()
+    forcing = sim._next_forcing()
+    ny, nx = sim.grid.shape
+    y, x = torch.meshgrid(torch.arange(ny + 1, device="cuda", dtype=sim.dtype),
+                          torch.arange(nx + 1, device="cuda", dtype=sim.dtype), indexing="ij")
+    depth = forcing.depth.clone()
+    depth[:, : nx // 3] = 5.0  # a shelf that grounds 2 m of ice
+    forcing = forcing.replace(depth=depth, ssh=0.3 * torch.sin(x / 7.0) * torch.cos(y / 5.0),
+                              ocean_u=0.1 * torch.cos(y / 4.0), ocean_v=0.05 * torch.sin(x / 6.0))
+    ga = dict(sim.grid_arrays, cohesion=sim.c_fix + sim.c_alea * sim.state.random_number)
+    consts, carry = momentum.substep_setup(sim.state, forcing, ga, sim.dt, sim.dyn)
+    assert int((consts.c_bu > 0).sum()) > 10
+    assert float(consts.grad_ssh_u.abs().max()) > 0.0 and float(consts.ocean_u.std()) > 0.0
+    launches = momentum_cuda.launches
+    out = _loop(momentum_cuda.substep_loop, sim, consts, carry, 40)
+    assert momentum_cuda.launches == launches + 80
+    ref = _loop(momentum_cuda.substep_loop_reference, sim, consts, carry, 40)
+    for o, r in zip(out, ref):
+        torch.testing.assert_close(o, r, rtol=0, atol=0)
+
+
+def _write_small_datasets(d):
+    """Small ERA5 (nine yearly files), TOPAZ4 (curvilinear) and ETOPO files
+    with smooth fields around 2015-10-16."""
+    import numpy as np
+    from scipy.io import netcdf_file
+
+    from nextsim_tpu_torch.grid.projection import PolarStereo
+    from nextsim_tpu_torch.utils.dates import string_to_datenum
+
+    def write(path, dims, variables):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with netcdf_file(str(path), "w", version=2) as nc:
+            for k, n in dims.items():
+                nc.createDimension(k, n)
+            for name, (vdims, arr, units) in variables.items():
+                v = nc.createVariable(name, "f8" if arr.dtype == np.float64 else "f4", vdims)
+                v[:] = arr
+                if units:
+                    v.units = units
+
+    t0 = string_to_datenum("2015-10-16 00:00:00") * 24.0
+    hours = t0 + np.arange(-1.0, 4.0)
+    lats, lons = np.linspace(90.0, 40.0, 51), np.arange(0.0, 360.0, 2.0)
+    lam, phi = (np.deg2rad(a) for a in np.meshgrid(lons, lats))
+    era5 = {"u10": 8.0 * np.cos(lam), "v10": 6.0 * np.sin(2 * lam), "t2m": 250.0 + 20.0 * np.cos(phi),
+            "d2m": 248.0 + 20.0 * np.cos(phi), "msl": 1.01e5 + 1e3 * np.sin(lam), "msdwswrf": 30.0 + 0 * lam,
+            "msdwlwrf": 220.0 + 30.0 * np.cos(phi), "mtpr": 1e-5 + 0 * lam, "msr": 7e-6 + 0 * lam}
+    for v, plane in era5.items():
+        write(d / f"ERA5_{v}_y2015.nc", {"time": 5, "latitude": 51, "longitude": 180}, {
+            "time": (("time",), hours, b"hours since 1900-01-01 00:00:00"),
+            "latitude": (("latitude",), lats.astype(np.float32), None),
+            "longitude": (("longitude",), lons.astype(np.float32), None),
+            v: (("time", "latitude", "longitude"),
+                np.stack([plane * (1 + 0.05 * k) for k in range(5)]).astype(np.float32), None)})
+    proj = PolarStereo(lat0=90.0, lat_ts=60.0, lon0=-135.0)
+    lat2, lon2 = (np.asarray(a) for a in proj.inverse(*np.meshgrid(np.linspace(-2e6, 2e6, 40),
+                                                                    np.linspace(-2e6, 2e6, 36))))
+    lam2 = np.deg2rad(lon2)
+    topaz = {"uo": 0.1 * np.sin(lam2), "vo": 0.1 * np.cos(lam2), "zos": 0.2 * np.cos(2 * lam2),
+             "thetao": -1.5 + 0 * lam2, "so": 33.0 + 0 * lam2, "mlotst": 20.0 + 0 * lam2,
+             "siconc": np.clip((lat2 - 70.0) / 10.0, 0.0, 0.95), "sithick": 1.0 + 0 * lam2,
+             "sisnthick": 0.1 + 0 * lam2}
+    write(d / "2015" / "topaz_rean_201510.nc", {"time": 2, "y": 36, "x": 40}, {
+        "time": (("time",), t0 + np.array([-12.0, 12.0]), b"hours since 1900-01-01 00:00:00"),
+        "latitude": (("y", "x"), lat2, None), "longitude": (("y", "x"), lon2, None),
+        **{v: (("time", "y", "x"), np.stack([a, 1.1 * a]).astype(np.float32), None) for v, a in topaz.items()}})
+    elat, elon = np.arange(55.0, 90.01, 0.5), np.arange(-180.0, 180.0, 1.0)
+    z = -3000.0 + 2900.0 * np.exp(-((elat[:, None] - 80.0) ** 2) / 20.0) * (np.cos(np.deg2rad(elon)) > 0.5)
+    write(d / "ETOPO_Arctic_2arcmin.nc", {"lat": len(elat), "lon": len(elon)}, {
+        "lat": (("lat",), elat.astype(np.float32), None), "lon": (("lon",), elon.astype(np.float32), None),
+        "z": (("lat", "lon"), z.astype(np.float32), None)})
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+def test_dataset_forcing_on_the_card_equals_the_cpu(cuda, dtype_name, tmp_path, monkeypatch):
+    import dataclasses
+
+    from nextsim_tpu_torch.forcing.datasets import DatasetForcing
+    from nextsim_tpu_torch.grid.grid import Grid
+    from nextsim_tpu_torch.utils.dates import string_to_datenum
+
+    _write_small_datasets(tmp_path)
+    monkeypatch.setenv("NEXTSIM_DATA_DIR", str(tmp_path))
+    cfg = Config(overrides={"setup.atmosphere-type": "era5", "setup.ocean-type": "topaz4_rean",
+                            "setup.bathymetry-type": "etopo", "simul.spinup_duration": 0.5})
+    grid = Grid.square(nx=40, ny=36, dx=25e3, x0=-500e3, y0=-450e3)
+    dt = {"float32": torch.float32, "float64": torch.float64}[dtype_name]
+    gpu, cpu = DatasetForcing(cfg, grid, dt, "cuda"), DatasetForcing(cfg, grid, dt, "cpu")
+    t_init = string_to_datenum("2015-10-16 00:00:00")
+    for hours in (0.1, 1.5, 2.75):
+        t = t_init + hours / 24.0
+        a, b = gpu(t, t_init), cpu(t, t_init)
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            assert (x is None) == (y is None), f.name
+            if x is not None:
+                assert x.device.type == "cuda" and x.dtype == dt, f.name
+                torch.testing.assert_close(x.cpu(), y, rtol=0, atol=0, msg=f.name)
+    assert float(a.ocean_u.abs().max()) > 0.0 and float(a.wind_u.std()) > 0.0 and float(a.depth.std()) > 0.0

@@ -4,6 +4,9 @@
   from the same initial state, on a 32^2 arctic grid and on the toy square,
   with thermodynamics off and on, held to tests/test_golden.py's
   cross-platform field tolerances (and THERMO_TOLS for the thermo fields).
+* The dataset slice: the same on a 32^2 ``arctic_etopo`` grid at 100 km on
+  synthetic ERA5 + TOPAZ4 + ETOPO files with TOPAZ ice and thermo on, and a
+  restart with the OSISAF/AMSR2 assimilation.
 * The golden toy run: the port's 15 steps against golden_toy_fields.npz
   (FIELD_TOLS) and golden_toy.json (2%), from the JAX package's initial
   random field (golden_toy_random_number.npy, pinned below).
@@ -11,18 +14,21 @@
   modules (config schema, grid, projection, constants, dates) are pinned to
   their originals; the pieces of the main path around the step
   (State.zeros, init_state, ConstantForcing, time_info) agree with the
-  JAX package's; unported subsystems raise.
+  JAX package's; the options ported since the first slice run; unported
+  subsystems raise.
 * The CUDA wrapper raises where it cannot launch its kernel.
 """
 
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
 from types import SimpleNamespace
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,6 +61,8 @@ from nextsim_tpu_torch.model import checks as tchecks
 from nextsim_tpu_torch.model import init_state as tinit
 from nextsim_tpu_torch.ops import momentum_cuda
 from test_golden import FIELD_TOLS
+from test_torch_datasets import curvilinear_latlon, write_era5, write_etopo
+from test_torch_init_datasets import write_ice_products
 from test_torch_momentum import jax_to_numpy
 
 HERE = pathlib.Path(__file__).parent
@@ -237,6 +245,122 @@ def test_time_info_matches_jax():
 
 
 # ---------------------------------------------------------------------------
+# the dataset slice
+# ---------------------------------------------------------------------------
+
+# a curvilinear (TOPAZ-like) source grid over the whole 3200 km arctic box
+BIG_CURVILINEAR = dict(ny=30, nx=32, dx=120e3, lon0=0.0, x0=-1900e3, y0=-1800e3)
+# configs/arctic_10km.cfg's forcing on a 32^2 arctic_etopo grid at 100 km
+# (dte = 1.7 s < dx/800), winds on from the start
+DATASET_SLICE = {
+    "grid.preset": "arctic_etopo", "grid.nx": 32, "grid.ny": 32, "grid.resolution": 100e3,
+    "simul.timestep": 200, "simul.time_init": "2015-10-16 00:00:00",
+    "dynamics.substeps": 120, "dynamics.alea_factor": 0.33, "dynamics.use_coriolis": True,
+    "setup.atmosphere-type": "era5", "setup.ocean-type": "topaz4_rean",
+    "setup.ice-type": "topaz4_rean", "setup.bathymetry-type": "etopo",
+    "thermo.use_thermo_forcing": True, "simul.spinup_duration": 0.0,
+    "tpu.donate_state": False,
+}
+
+
+def write_dataset_dir(d):
+    """ERA5, ETOPO and every ice product (TOPAZ4 included) under ``d``."""
+    d = str(d)
+    write_era5(d)
+    write_etopo(d)
+    write_ice_products(d, latlon=curvilinear_latlon(**BIG_CURVILINEAR))
+    return d
+
+
+@pytest.fixture(scope="module")
+def dataset_dir(tmp_path_factory):
+    return write_dataset_dir(tmp_path_factory.mktemp("datasets"))
+
+
+def _assert_states_bitwise(got, ref, skip=()):
+    assert set(got) == set(ref)
+    for f in ref:
+        if f not in skip:
+            np.testing.assert_array_equal(got[f], ref[f], err_msg=f)
+
+
+@pytest.mark.parametrize("dtype_name,thermo", [("float32", False), ("float64", True)])
+def test_dataset_slice_matches_jax_simulator(dtype_name, thermo, dataset_dir, monkeypatch):
+    """Thermo on is held in float64: ice initialised from a dataset keeps
+    State.zeros' T1 = Tfr_ice, where Winton's layer enthalpy e1 is zero, so
+    the sign of a one-ulp difference in T1 decides the first step's melt
+    (torch's CPU float32 sqrt is one ulp off on such inputs; ROADMAP C)."""
+    monkeypatch.setenv("NEXTSIM_DATA_DIR", dataset_dir)
+    over = dict(DATASET_SLICE, **{"tpu.dtype": dtype_name, "thermo.use_thermo_forcing": thermo})
+    with jax.enable_x64(dtype_name == "float64"):
+        jsim = JSimulator(JConfig(overrides=over))
+        psim = PSimulator(PConfig(overrides=over))
+        assert 0.2 < psim.grid.mask.mean() < 0.95  # a coastline
+        _assert_states_bitwise(state_to_numpy(psim.state), jax_to_numpy(jsim.state),
+                               skip=("random_number",))
+        psim.state = state_from_numpy(jax_to_numpy(jsim.state))
+        for _ in range(5):
+            jsim.step()
+            psim.step()
+        for f in dataclasses.fields(jsim.last_forcing):
+            r = getattr(jsim.last_forcing, f.name)
+            if r is not None:
+                np.testing.assert_array_equal(getattr(psim.last_forcing, f.name).numpy(), np.asarray(r),
+                                              err_msg=f.name)
+        ref = jax_to_numpy(jsim.state)
+    got = state_to_numpy(psim.state)
+    assert got["conc"].dtype == np.dtype(dtype_name)
+    assert_fields_within_golden_tols(ref, got, "dataset slice")
+    if thermo:
+        for f, atol in THERMO_TOLS.items():
+            np.testing.assert_allclose(got[f], ref[f], rtol=0, atol=atol, err_msg=f)
+    # the datasets reached the step: varying depth, winds and currents
+    lf = psim.last_forcing
+    ocean = psim.grid.mask > 0.5
+    assert lf.depth.numpy()[ocean].std() > 10.0
+    assert float(lf.wind_u.std()) > 1.0 and float(lf.ocean_u.std()) > 0.01
+    assert float(np.abs(got["vt_u"]).max()) > 0.0
+
+
+def test_restart_with_assimilation_matches_jax(dataset_dir, monkeypatch, tmp_path):
+    """A restart with setup.use_assimilation (the OSISAF/AMSR2 blend):
+    assimilated state bitwise, then 2 steps within the golden tolerances."""
+    from nextsim_tpu.output.restart import write_restart as jwrite_restart
+
+    monkeypatch.setenv("NEXTSIM_DATA_DIR", dataset_dir)
+    over = dict(DATASET_SLICE, **{"setup.ice-type": "topaz4_nrt-amsr2-osisaf",
+                                   "output.exporter_path": str(tmp_path)})
+    first = JSimulator(JConfig(overrides=over))
+    first.step()
+    jwrite_restart(first, name="final")
+    over = dict(over, **{"restart.start_from_restart": True, "restart.basename": "final",
+                         "setup.use_assimilation": True})
+    jsim = JSimulator(JConfig(overrides=over))
+    psim = PSimulator(PConfig(overrides=over))
+    ref, got = jax_to_numpy(jsim.state), state_to_numpy(psim.state)
+    _assert_states_bitwise(got, ref)
+    before = jax_to_numpy(first.state)
+    assert not np.array_equal(got["conc"], before["conc"])  # the blend moved conc
+    assert np.abs(got["conc_upd"] - before["conc_upd"]).max() > 0.0
+    assert not np.array_equal(got["sst"], before["sst"])  # and the slab ocean
+    for _ in range(2):
+        jsim.step()
+        psim.step()
+    assert_fields_within_golden_tols(jax_to_numpy(jsim.state), state_to_numpy(psim.state), "assimilated")
+
+
+def test_assimilate_matches_jax():
+    over = SLICES["arctic32"]
+    jsim = JSimulator(JConfig(overrides=over))
+    psim = PSimulator(PConfig(overrides=over))
+    psim.state = state_from_numpy(jax_to_numpy(jsim.state))
+    obs = np.random.default_rng(2).uniform(0.0, 1.0, psim.grid.shape)
+    jsim.assimilate(obs)
+    psim.assimilate(obs)
+    _assert_states_bitwise(state_to_numpy(psim.state), jax_to_numpy(jsim.state))
+
+
+# ---------------------------------------------------------------------------
 # set-up pieces against the JAX package
 # ---------------------------------------------------------------------------
 
@@ -308,8 +432,6 @@ def test_constant_forcing_matches_jax():
 # ---------------------------------------------------------------------------
 
 UNPORTED = {
-    "nesting": {"nesting.use_nesting": True},
-    "assimilation": {"restart.start_from_restart": True, "setup.use_assimilation": True},
     "fsd": {"wave_coupling.num_fsd_bins": 4},
     "wim": {"nextwim.use_wim": True},
     "ensemble": {"statevector.ensemble_member": 1},
@@ -327,7 +449,9 @@ def test_unported_subsystems_raise(name):
         PSimulator(PConfig(overrides=over))
 
 
-# the options that raised before thermodynamics and the outputs were ported
+# the options that raised before thermodynamics, the outputs, the datasets
+# and nesting were ported; the dataset ones read the files
+# of write_dataset_dir
 PORTED = {
     "thermo": {"thermo.use_thermo_forcing": True, "ideal_simul.init_SST_limit": 10.0},
     "moorings": {"moorings.use_moorings": True, "moorings.output_timestep": 2,
@@ -338,18 +462,35 @@ PORTED = {
     "restart_in": {"restart.start_from_restart": True, "restart.basename": "final"},
     "restart_out": {"restart.write_final_restart": True},
     "check_fields": {"debugging.check_fields": True, "debugging.check_velocity_fields": True},
+    "era5": {"setup.atmosphere-type": "era5"},
+    "topaz4": {"setup.ice-type": "topaz4", "setup.ocean-type": "topaz4"},
+    "arctic_etopo": {"grid.preset": "arctic_etopo", "setup.bathymetry-type": "etopo"},
+    "nesting": {"nesting.use_nesting": True, "grid.boundary": "open", "nesting.use_ocean_nesting": True,
+                "nesting.nest_dynamic_vars": True},
+    "assimilation": {"restart.start_from_restart": True, "restart.basename": "final",
+                     "setup.use_assimilation": True, "setup.ice-type": "topaz4_nrt-amsr2-osisaf"},
 }
+DATASET_OPTIONS = ("era5", "topaz4", "arctic_etopo", "nesting", "assimilation")
 
 
 @pytest.mark.parametrize("name", sorted(PORTED))
-def test_formerly_unported_options_run(name, tmp_path):
+def test_formerly_unported_options_run(name, tmp_path, monkeypatch):
     """Each option that the port used to refuse now runs through
     ``Simulator.run`` (4 steps of 200 s) and leaves its output."""
     base = dict(SLICES["toy_square32"], **{"dynamics.substeps": 20, "simul.duration": 800.0 / 86400.0,
                                           "output.exporter_path": str(tmp_path)})
-    if name == "restart_in":
+    over = dict(PORTED[name])
+    if name in DATASET_OPTIONS:
+        data = write_dataset_dir(tmp_path / "data")
+        monkeypatch.setenv("NEXTSIM_DATA_DIR", data)
+        if name == "nesting":
+            from test_torch_nesting import write_nesting_files
+
+            write_nesting_files(data, model=dict(nx=32, ny=32, dx=10e3, boundary="open"))
+            over["nesting.outer_mesh"] = os.path.join(data, "outer")
+    if name in ("restart_in", "assimilation"):
         PSimulator(PConfig(overrides=dict(base, **PORTED["restart_out"]))).run()
-    sim = PSimulator(PConfig(overrides=dict(base, **PORTED[name])))
+    sim = PSimulator(PConfig(overrides=dict(base, **over)))
     sim.run()
     assert sim.pcpt == 4
     assert np.isfinite(state_to_numpy(sim.state)["conc"]).all()
@@ -362,19 +503,36 @@ def test_formerly_unported_options_run(name, tmp_path):
         assert "qa" in sim.diag and float(sim.state.conc.max()) > 0.0
     if name == "restart_in":
         assert sim.time_init > PSimulator(PConfig(overrides=base)).time_init  # extended
+    if name in DATASET_OPTIONS:
+        assert "forcing" in sim.timer.print_all()
+    lf = sim.last_forcing
+    if name == "era5":
+        assert float(lf.wind_u.std()) > 0.1 and lf.dair is not None
+    if name == "topaz4":
+        assert float(sim.state.conc.std()) > 0.0 and float(lf.ocean_temp.std()) > 0.0
+    if name == "arctic_etopo":
+        assert float(lf.depth.std()) > 0.0
+    if name == "nesting":
+        assert sim.nesting is not None and float(lf.ocean_temp.std()) > 0.0
+    if name == "assimilation":
+        assert float(sim.state.conc_upd.abs().max()) > 0.0
 
 
-@pytest.mark.parametrize("over", [
-    {"setup.atmosphere-type": "era5"},
-    {"setup.ice-type": "topaz4"},
-    {"grid.preset": "arctic_etopo"},
-])
-def test_dataset_inputs_raise(over):
-    cfg = PConfig(overrides=dict(SLICES["toy_square32"], **over))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
-        grid = PGrid.from_config(cfg)
-        make_provider(cfg, grid)
-        tinit.init_state(cfg, grid)
+def test_default_asr_without_files_is_constant_forcing(tmp_path, monkeypatch):
+    """The default atmosphere-type (asr) routes to the dataset provider,
+    which without its files gives the constant forcing, as in the JAX
+    package."""
+    from nextsim_tpu_torch.forcing.datasets import DatasetForcing
+
+    monkeypatch.setenv("NEXTSIM_DATA_DIR", str(tmp_path))
+    cfg = PConfig(overrides={"grid.nx": 16, "grid.ny": 16})
+    assert cfg["setup.atmosphere-type"] == "asr"
+    prov = make_provider(cfg, PGrid.from_config(cfg))
+    assert isinstance(prov, DatasetForcing)
+    const = PConstantForcing(cfg, PGrid.from_config(cfg))
+    for f in dataclasses.fields(const(0.5, 0.0)):
+        a, b = getattr(prov(0.5, 0.0), f.name), getattr(const(0.5, 0.0), f.name)
+        assert (a is None and b is None) or torch.equal(a, b), f.name
 
 
 # ---------------------------------------------------------------------------
@@ -487,7 +645,10 @@ SLICE_MODULES = [
     "nextsim_tpu_torch.utils.async_writer", "nextsim_tpu_torch.output.moorings",
     "nextsim_tpu_torch.output.exporter", "nextsim_tpu_torch.output.ref_binary",
     "nextsim_tpu_torch.output.restart", "nextsim_tpu_torch.output.drifters",
-    "nextsim_tpu_torch.__main__",
+    "nextsim_tpu_torch.__main__", "nextsim_tpu_torch.forcing.datasets",
+    "nextsim_tpu_torch.forcing.bathymetry", "nextsim_tpu_torch.model.init_ice_datasets",
+    "nextsim_tpu_torch.ops.nesting", "nextsim_tpu_torch.model.nesting_source",
+    "nextsim_tpu_torch.tools.synthetic_etopo",
 ]
 
 
@@ -554,8 +715,12 @@ def test_projection_copy_is_pinned():
     {"grid.preset": "square", "grid.nx": 20, "grid.ny": 14, "grid.boundary": "open"},
     {"grid.preset": "arctic", "grid.nx": 64, "grid.ny": 48, "grid.resolution": 25e3},
     {"grid.preset": "", "grid.nx": 16, "grid.ny": 16},  # mesh file name -> arctic
+    {"grid.preset": "arctic_etopo", "grid.nx": 48, "grid.ny": 40, "grid.resolution": 80e3},
 ])
-def test_grid_copy_is_pinned(over):
+def test_grid_copy_is_pinned(over, tmp_path, monkeypatch):
+    if over["grid.preset"] == "arctic_etopo":
+        write_etopo(str(tmp_path))
+        monkeypatch.setenv("NEXTSIM_DATA_DIR", str(tmp_path))
     jg = JGrid.from_config(JConfig(overrides=over))
     tg = PGrid.from_config(PConfig(overrides=over))
     assert (tg.nx, tg.ny, tg.dx, tg.x0, tg.y0) == (jg.nx, jg.ny, jg.dx, jg.x0, jg.y0)
