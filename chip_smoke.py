@@ -7,18 +7,25 @@ Needs one CUDA device and nvcc; exits non-zero without them. Phases, each
 printing a line; any failure raises and ends the run with a non-zero exit:
 
 1. the card's name and power limit (nvidia-smi);
-2. build the momentum substep kernel (csrc/momentum_substep.cu) with nvcc;
+2. build the momentum substep kernel (csrc/momentum_substep.cu) with nvcc,
+   and print its launch plan at 464^2 and 1216^2 (tile, substeps a launch,
+   shared memory, blocks, launches a loop) beside ptxas' registers;
 3. the kernel against its plain PyTorch version on the card: bbm, evp and
-   mevp, float32 and float64, on a 33x33 square and on a 464^2 arctic state
-   spun up until damage is active; 3 substeps held tightly, 120 substeps
-   statistically in float32 and tightly in float64;
+   mevp, float32 and float64, on a 33x33 square, on a ragged 70x45 one (11
+   and 121 substeps: no multiple of any number of substeps a launch, so
+   the last launch runs a remainder) and on a 464^2 arctic state spun up
+   until damage is active; 3 (11) substeps held tightly, 120 (121) substeps
+   statistically in float32 and tightly in float64; bbm and evp must equal
+   the plain loop bitwise in float64 and, over 3 (11) substeps, in float32;
 4. the golden toy run (48^2, 15 steps) against tests/golden_toy_fields.npz;
 5. the thermo-off main path: the 464^2 10 km arctic configuration of
    bench.py through ``Simulator(cfg, device="cuda").step_chunk()`` for 30
    steps; all fields finite, zero violations, and every substep launched
-   through the kernel;
-6. one 120-substep loop at 464^2 in float32, kernel beside plain;
-7. 3 steps at 1216^2 and 5 km (1.48M cells), finite with zero violations;
+   through the kernel (the launch plan's count);
+6. one 120-substep loop at 464^2 in float32, kernel beside plain, with the
+   least time the card could take for it (its bound) and the share reached;
+7. 3 steps at 1216^2 and 5 km (1.48M cells), finite with zero violations,
+   and the kernel's time for one 120-substep loop there beside its bound;
 8. the main path with thermodynamics on (the default Winton slab and young
    ice, configs/arctic_10km.cfg's ice): the same 464^2 configuration through
    ``step_chunk()`` for 30 steps; all fields finite, zero violations, and
@@ -42,7 +49,7 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    800x880 daily); every output present and finite, zero violations, conc
    in [0, 1], the initial conc equal to the interpolated TOPAZ siconc, the
    wind of step 36 equal to the interpolated ERA5 wind and unlike step 1's,
-   and every substep through the kernel (2x120x36 launches);
+   and every substep through the kernel (36 loops of the plan's launches);
 12. the kernel against its plain version on the phase-11 state, where
    grounding (C_BU) and the SSH gradient are non-zero and the currents vary:
    3 substeps tight, 120 substeps statistically in float32 and tightly in
@@ -131,6 +138,35 @@ STATE_PLANES = ("vt_u", "vt_v", "ut_u", "ut_v", "sxx", "syy", "sxy", "damage")
 TIGHT = {"float32": (1e-6, 1e-5), "float64": (1e-12, 1e-10)}
 
 
+# Operations of one substep, a division or a square root counted as one, from
+# csrc/momentum_substep.cu: (per cell, per node)
+SUBSTEP_OPS = {"bbm": (97, 94), "evp": (51, 94), "mevp": (51, 94)}
+H100_BYTES_PER_S = 3.35e12  # device memory
+H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
+H100_F64_OPS_PER_S = 34e12  # float64 outside the tensor cores (NVIDIA's data sheet, SXM)
+
+
+def kernel_bound_ms(ny, nx, steps, dtype, dyn_type):
+    """The least time an H100 could take for one substep loop: (bound_ms,
+    "bytes" or "operations", bytes_ms, operations_ms). Bytes: every plane
+    the rheology reads once and every state plane it updates written once.
+    Operations: SUBSTEP_OPS on every cell and node, every substep."""
+    import torch
+
+    from nextsim_tpu_torch.ops import momentum_cuda
+
+    itemsize = 4 if dtype == torch.float32 else 8
+    cells, nodes = ny * nx, (ny + 1) * (nx + 1)
+    is_node = lambda n: n.startswith(("vt", "ut")) or n in momentum_cuda._NODE  # noqa: E731
+    moved = list(momentum_cuda.tile_planes(dyn_type)) + list(momentum_cuda._STATE_USED[dyn_type])
+    n_bytes = itemsize * sum(nodes if is_node(n) else cells for n in moved)
+    per_cell, per_node = SUBSTEP_OPS[dyn_type]
+    ops = steps * (per_cell * cells + per_node * nodes)
+    bytes_ms = 1e3 * n_bytes / H100_BYTES_PER_S
+    ops_ms = 1e3 * ops / (H100_F32_OPS_PER_S if dtype == torch.float32 else H100_F64_OPS_PER_S)
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms > ops_ms else "operations"), bytes_ms, ops_ms
+
+
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
@@ -174,9 +210,14 @@ def compare(label, sim, dyn_type, steps, dtype_name, state=None, setup=None):
     out = run_loop(momentum_cuda.substep_loop, consts, carry, steps, sim, p)
     sync()
     atol_rel, rtol = TIGHT[dtype_name]
-    statistical = dtype_name == "float32" and steps > 3
+    statistical = dtype_name == "float32" and steps > 11
     worst = 0.0
     n_off = 0
+    bitwise = all(torch.equal(o, r) for o, r in zip(out, ref))
+    if p.dynamics_type != "mevp" and not statistical and not bitwise:
+        # no contraction and the plain version's term order: recomputing a
+        # halo point gives the bits of computing it once
+        raise AssertionError(f"{label}: the kernel does not equal the plain loop bitwise")
     for name, r, o in zip(STATE_PLANES, ref, out):
         if not bool(torch.isfinite(o).all()):
             raise AssertionError(f"{label}: kernel {name} is not finite")
@@ -201,7 +242,7 @@ def compare(label, sim, dyn_type, steps, dtype_name, state=None, setup=None):
             raise AssertionError(f"{label}: mean speed {float(u_o)} vs plain {float(u_r)}")
         if abs(float(out[7].mean() - ref[7].mean())) > 1e-3:
             raise AssertionError(f"{label}: mean damage {float(out[7].mean())} vs {float(ref[7].mean())}")
-    phase("compare", f"{label}: max |dvel| {worst:.3e} m/s, points beyond the tight "
+    phase("compare", f"{label}: {'bitwise equal' if bitwise else 'not bitwise equal'}, max |dvel| {worst:.3e} m/s, points beyond the tight "
           f"tolerance {n_off} ({'statistical tier: mean speed rtol 1e-3, mean damage atol 1e-3' if statistical else 'tight tier'})")
     return worst
 
@@ -516,7 +557,7 @@ def dataset_cli_run(data: Path, out: Path, smi: str):
     sim = kept["sim"]
     if sim.pcpt != DATASET_STEPS:
         raise AssertionError(f"dataset CLI ran {sim.pcpt} steps, not {DATASET_STEPS}")
-    expect = 2 * sim.dyn.substeps * DATASET_STEPS
+    expect = momentum_cuda.launches_for(sim.dyn.substeps, *sim.grid.shape) * DATASET_STEPS
     if launches != expect:
         raise AssertionError(f"dataset path: {launches} kernel launches, expected {expect}")
 
@@ -856,6 +897,12 @@ def main() -> int:
     lib = momentum_cuda.build()
     ptxas = [ln.strip() for ln in momentum_cuda.build_log.splitlines() if "registers" in ln]
     phase("build", f"{lib.name} in {time.perf_counter() - t0:.1f} s; ptxas: {' | '.join(ptxas)}")
+    for n in (464, 1216):
+        for dt in (torch.float32, torch.float64):
+            pl = momentum_cuda.launch_plan(n, n, 120, dt, "bbm")
+            phase("build", f"plan {n}^2 bbm {dt}: tile {pl.tile_h} x {pl.tile_w} nodes, {pl.k} substeps a launch, "
+                  f"{pl.n_planes} planes, {pl.smem_bytes} bytes of shared memory, {pl.threads} threads, "
+                  f"{pl.blocks_y} x {pl.blocks_x} blocks, {len(pl.launches)} launches a 120-substep loop")
 
     # 3. kernel vs plain
     small = dict(GOLDEN_TOY, **{"grid.preset": "square", "grid.nx": 33, "grid.ny": 33,
@@ -870,11 +917,16 @@ def main() -> int:
         raise AssertionError("the spun-up state has no damage")
     host_state = state_to_numpy(sim_spin.state)
     main_err = None
+    ragged = dict(small, **{"grid.nx": 45, "grid.ny": 70, "ideal_simul.constant_wind_v": -6.0})
     for dtype_name in ("float32", "float64"):
         sim_small = make_sim(small, dtype_name)
+        sim_ragged = make_sim(ragged, dtype_name)
+        sim_ragged.step()  # a moving, stressed state
         sim_big = make_sim(spun, dtype_name)
         big_state = state_from_numpy(host_state, device="cuda", dtype=sim_big.dtype)
         for dyn_type in ("bbm", "evp", "mevp"):
+            for steps in (11, 121):  # no multiple of 2..8 substeps a launch: a remainder launch
+                compare(f"70x45 {dyn_type} {dtype_name} {steps} substeps", sim_ragged, dyn_type, steps, dtype_name)
             for steps in (3, 120):
                 compare(f"33^2 {dyn_type} {dtype_name} {steps} substeps", sim_small, dyn_type, steps, dtype_name)
                 err = compare(f"464^2 {dyn_type} {dtype_name} {steps} substeps", sim_big, dyn_type, steps,
@@ -916,18 +968,18 @@ def main() -> int:
     viol = checks.violations(sim.state).cpu().numpy()
     if viol.any():
         raise AssertionError(f"main path: violations {checks.describe(viol)}")
-    if launches != 2 * substeps * k:
-        raise AssertionError(f"main path: {launches} kernel launches, expected {2 * substeps * k}")
+    per_loop = momentum_cuda.launches_for(substeps, *sim.grid.shape)
+    if launches != per_loop * k:
+        raise AssertionError(f"main path: {launches} kernel launches, expected {per_loop * k}")
     ocean = int(sim.grid.mask.sum())
     phase("main", f"464^2 bbm, {k} steps in {wall:.3f} s: {1e3 * wall / k:.2f} ms/step, "
           f"{ocean * substeps * k / wall:.4e} ocean-cell-substeps/s ({ocean} ocean cells); "
-          f"{launches} kernel launches; max speed {float(torch.hypot(sim.state.vt_u, sim.state.vt_v).max()):.3f} m/s; "
+          f"{launches} kernel launches ({per_loop} a step); max speed {float(torch.hypot(sim.state.vt_u, sim.state.vt_v).max()):.3f} m/s; "
           f"zero violations; {smi}")
 
     # 6. one 120-substep loop at 464^2, kernel beside plain (CUDA events)
-    consts, carry, p = setup_for(sim, "bbm")
-
-    def timed(fn, reps=3):
+    def timed(fn, sim, reps=3):
+        consts, carry, p = setup_for(sim, "bbm")
         run_loop(fn, consts, carry, substeps, sim, p)  # warm
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -938,12 +990,14 @@ def main() -> int:
         sync()
         return start.elapsed_time(end) / reps
 
-    t_plain = [timed(momentum_cuda.substep_loop_reference)]
-    t_kern = [timed(momentum_cuda.substep_loop), timed(momentum_cuda.substep_loop)]
-    t_plain.append(timed(momentum_cuda.substep_loop_reference))
+    t_plain = [timed(momentum_cuda.substep_loop_reference, sim)]
+    t_kern = [timed(momentum_cuda.substep_loop, sim), timed(momentum_cuda.substep_loop, sim)]
+    t_plain.append(timed(momentum_cuda.substep_loop_reference, sim))
     ms, plain_ms = min(t_kern), min(t_plain)
-    phase("time", f"120-substep bbm loop at 464^2 f32: kernel {t_kern} ms, plain {t_plain} ms "
-          f"(order plain, kernel, kernel, plain); {smi}")
+    bound_ms, bound_by, bytes_ms, ops_ms = kernel_bound_ms(464, 464, substeps, torch.float32, "bbm")
+    phase("time", f"120-substep bbm loop at 464^2 f32: kernel {t_kern} ms in {per_loop} launches, plain {t_plain} ms "
+          f"(order plain, kernel, kernel, plain); bound {bound_ms:.4f} ms by {bound_by} (bytes {bytes_ms:.4f} ms, "
+          f"operations {ops_ms:.4f} ms): the kernel reaches {100 * bound_ms / ms:.1f}% of it; {smi}")
 
     # 7. 1216^2 at 5 km
     big = dict(BENCH, **{"grid.nx": 1216, "grid.ny": 1216, "grid.resolution": 5e3})
@@ -960,6 +1014,13 @@ def main() -> int:
         raise AssertionError(f"1216^2: violations {checks.describe(viol)}")
     phase("big", f"1216^2 at 5 km ({1216 * 1216} cells): 3 steps in {wall:.3f} s "
           f"({1e3 * wall / 3:.1f} ms/step, first steps included), finite, zero violations; {smi}")
+    t_kern = [timed(momentum_cuda.substep_loop, sim), timed(momentum_cuda.substep_loop, sim)]
+    ms_1216 = min(t_kern)
+    bound_ms_1216, _, bytes_ms, ops_ms = kernel_bound_ms(1216, 1216, substeps, torch.float32, "bbm")
+    phase("time", f"120-substep bbm loop at 1216^2 f32: kernel {t_kern} ms in "
+          f"{momentum_cuda.launches_for(substeps, 1216, 1216)} launches; bound {bound_ms_1216:.4f} ms (bytes "
+          f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms): the kernel reaches {100 * bound_ms_1216 / ms_1216:.1f}% "
+          f"of it; {smi}")
 
     # 8. the thermo-on main path
     sim = make_sim(BENCH_THERMO)
@@ -978,8 +1039,8 @@ def main() -> int:
     viol = checks.violations(sim.state).cpu().numpy()
     if viol.any():
         raise AssertionError(f"thermo-on main path: violations {checks.describe(viol)}")
-    if launches != 2 * substeps * k:
-        raise AssertionError(f"thermo-on main path: {launches} kernel launches, expected {2 * substeps * k}")
+    if launches != per_loop * k:
+        raise AssertionError(f"thermo-on main path: {launches} kernel launches, expected {per_loop * k}")
     if float(sim.state.conc.max()) < 0.5:
         raise AssertionError("thermo-on main path: the ice melted away")
     phase("thermo", f"464^2 bbm, thermo on, {k} steps in {wall:.3f} s: {1e3 * wall / k:.2f} ms/step, "
@@ -1029,6 +1090,11 @@ def main() -> int:
         "max_abs_err": max(main_err, dataset_err),
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no PyTorch call computes this function
+        "ms_1216": ms_1216,
+        "bound_ms_1216": bound_ms_1216,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -7,43 +7,108 @@
 // guards as nextsim_tpu_torch/ops/momentum.py:_build_substep):
 //   cell stage  strain rates from the 4 corner velocities, then the BBM
 //               stress/damage update (rheology.bbm_update_planes) or the
-//               (m)EVP update (rheology.vp_update_planes), in place on
-//               sxx, syy, sxy, damage;
+//               (m)EVP update (rheology.vp_update_planes) of sxx, syy, sxy,
+//               damage;
 //   node stage  stress divergence from the 4 adjacent cells (zero outside),
 //               the 2x2 implicit-drag node solve and the displacement
-//               ut += dte*vt (not for mevp), in place on vt and ut.
-// Neither stage reads a plane it writes at another index, so the in-place
-// updates are race-free; the launch boundary on one stream is the grid-wide
-// barrier between the stages.
+//               ut += dte*vt (not for mevp) of vt and ut.
 //
-// What bounds it on an H100: memory traffic. A substep reads ~30 planes and
-// writes 8, at ~1 flop per byte, far below the card's ~20 flop/byte balance
-// in float32. At 464^2 a substep's working set (~26 MB) fits in the 50 MB L2,
-// so the planes stream from L2 rather than HBM; at 1216^2 (~180 MB) they
-// stream from HBM. This first design is the simple, correct one: one thread
-// per cell or node, coalesced row-major accesses, and no blocking. The TPU
-// kernel's trick -- K substeps per residency of a row strip with a K-row halo
-// in fast memory -- maps onto shared-memory tiles with a halo and is left to
-// later performance work, as are fusing the two stages and CUDA graphs.
+// The design: temporal blocking on a shared-memory tile with a halo.
+//   One launch advances the whole grid by k substeps. A block owns a tile of
+//   tile_h x tile_w nodes (and the cells with the same indices). It loads
+//   the tile plus a halo of k points on every side -- every plane the
+//   rheology reads, 8 state planes and up to 22 loop-invariant ones -- into
+//   shared memory, runs k times (cell stage, __syncthreads(), node stage,
+//   __syncthreads()) there, and writes only its own tile of the state back.
+//   One substep's domain of dependence grows by one point (nodes -> cell in
+//   the strain rates, cells -> node in the stress divergence), so substep s
+//   is computed on the box shrunk by s points on every side whose neighbour
+//   lies inside the domain: what it reads is exact, and after k substeps the
+//   tile is. A point outside the domain is loaded as zero and never
+//   computed: zero volume gives zero force and no solve leaves a zero
+//   velocity, which is the closed boundary of the plain version's zero
+//   padding, so a box does not shrink on a side that is the domain's edge.
+//   Blocks of one launch read their neighbours' tiles as halo, so a launch
+//   reads one set of state planes and writes the other (ping-pong); the
+//   launch boundary is the grid-wide barrier. A loop of `steps` substeps is
+//   ceil(steps / k) launches, the last with the remainder.
+//
+// What bounds it on an H100: operations. Counting every input plane read
+// once and every state plane written once, the loop moves 38 planes for
+// 120 x ~190 operations per point: at the card's 67 TFLOP/s against 3.35
+// TB/s the arithmetic takes ~7 times longer than the bytes. The design
+// keeps the planes out of device memory between the substeps of a launch,
+// so the traffic falls from 43 plane moves per substep (two streaming
+// launches) to (planes x (box / tile) + 8) / k per substep; the price is
+// the halo's redundant loads and arithmetic, (box / tile) - 1. On the card
+// a block spends about a third of its time loading (all blocks of a round
+// load at once, at the rate of device memory) and two thirds computing, at
+// the SM's instruction rate: bitwise float32 division and square root, the
+// NaN-propagating clamps and the addressing make ~300 instructions of the
+// ~95 operations of an update (PERF.md has the clock readings).
+//
+// The choice of tile, k and threads is made on the host per dtype, rheology
+// and grid (momentum_cuda.launch_plan, a cost model fitted to the kernel's
+// own clock counters), and so is every size: this file only checks that the
+// plan fits the shared memory it was launched with. On an H100 the plan for
+// bbm is tiles of 28 x 31-37 nodes with k = 5-6 in float32 (1024 threads)
+// and of 17-23 x 26-31 with k = 3-4 in float64 (512 threads: a value takes
+// two registers): more substeps a launch cost more halo, fewer cost more
+// launches and loads, and the blocks have to fill rounds of 132 SMs (at
+// 464^2, 255 blocks of 28 x 31 run in two full rounds; 169 of 36 x 36 took
+// half as long again). Everything lives in
+// shared memory: of the ~30 values per point only vt and the stresses (with
+// volume) are read across threads, but a box of ~1900 points does not fit
+// the register file of 1024 threads beside the temporaries (64 registers a
+// thread), and a box small enough to fit has too large a halo share.
+// Shared memory holds one record per point (its planes' values side by
+// side, an odd number of words): a value's offset in its record is a
+// compile-time constant, so a load costs one instruction, and threads walk
+// the (shrunk) box row-major, neighbouring threads on neighbouring records,
+// which the odd length spreads over all banks. The tile is loaded with
+// cp.async, every plane of a point in flight at once, no register staged.
+// Rows and columns come from a float reciprocal, not an integer division.
 //
 // Built with --fmad=false: no multiply-add contraction, so the kernel
 // rounds exactly like the eager PyTorch version of the same body (which
 // never contracts). The BBM failure branch amplifies a one-ulp difference
 // into visible ones, and the plain version is the kernel's oracle.
+// Recomputing a halo point gives the bits of computing it once, so the
+// blocked loop equals the plain loop bitwise.
 //
 // Plain C interface, loaded with ctypes by ops/momentum_cuda.py:
-//   int nextsim_substeps_f32(void* const* planes, const SubstepParams* p, void* stream)
+//   int nextsim_substeps_f32(void* const* planes, void* const* state_b,
+//                            const SubstepParams* p, const SubstepPlan* plan,
+//                            const int* launch_steps, void* stream)
 //   int nextsim_substeps_f64(...)
-// issue all 2*steps launches on the given stream, check cudaGetLastError()
-// after each, and return the first error (0 on success).
+// `planes` holds one pointer per Plane (null where the rheology reads none),
+// its first 8 the state slot that launch 0 reads; `state_b` the 8 pointers
+// of the other slot. The function makes plan->n_launches launches on the
+// stream, launch g running launch_steps[g] substeps from slot g % 2 into
+// slot (g + 1) % 2, checks cudaGetLastError() after each, and returns the
+// first error (0 on success).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <utility>
+
+#ifdef NEXTSIM_SUBSTEP_CLOCKS
+// Built with -DNEXTSIM_SUBSTEP_CLOCKS (nextsim_tpu_torch/tools/tune_substep.py
+// --clocks), every
+// block adds its SM clocks of loading, computing and storing to these sums
+// and counts itself: the readings behind momentum_cuda's cost model.
+__device__ unsigned long long g_clocks[4];
+#define CLOCK(name) const long long name = clock64()
+#else
+#define CLOCK(name)
+#endif
 
 namespace {
 
 // Plane order: must match momentum_cuda._PLANES.
 enum Plane {
-  // carried state, updated in place
+  // carried state
   VT_U, VT_V, UT_U, UT_V, SXX, SYY, SXY, DAMAGE,
   // cell coefficients (ny, nx)
   VOLUME, CONC, THICK, COHESION, BBM_EXPC, BBM_PMAX, BBM_HEAL, BBM_RTD, EVP_P,
@@ -55,6 +120,8 @@ enum Plane {
 };
 
 enum Rheology { BBM = 0, EVP = 1, MEVP = 2 };
+
+constexpr int N_STATE = 8;
 
 }  // namespace
 
@@ -69,11 +136,55 @@ struct SubstepParams {
   double cw, u0, b_mevp;  // rhow*Cw, Lemieux u0, mevp beta+1
 };
 
+// The launch plan, computed on the host: must match momentum_cuda._Plan.
+struct SubstepPlan {
+  int tile_h, tile_w, halo, threads;
+  int blocks_y, blocks_x, n_planes, smem_bytes;
+  int n_launches, pad_;
+};
+
 namespace {
+
+// The planes a rheology keeps on the tile (momentum_cuda.tile_planes): the
+// state planes it updates and the loop-invariant planes it reads.
+__host__ __device__ constexpr bool plane_used(int rheo, int q) {
+  if (q == UT_U || q == UT_V) return rheo != MEVP;
+  if (q == DAMAGE) return rheo == BBM;
+  if (q < N_STATE || q == VOLUME) return true;
+  if (q == THICK || q == EVP_P) return rheo != BBM;
+  if (q < GRAD_SSH_U) return rheo == BBM;  // conc, cohesion, bbm_*
+  if (q == VTM_U || q == VTM_V) return rheo == MEVP;
+  return true;  // the 15 node coefficients
+}
+
+__host__ __device__ constexpr bool is_node(int q) { return q < SXX || q >= GRAD_SSH_U; }
+
+// position of plane q among the planes on the tile
+__host__ __device__ constexpr int plane_slot(int rheo, int q) {
+  int s = 0;
+  for (int i = 0; i < q; ++i) s += plane_used(rheo, i) ? 1 : 0;
+  return s;
+}
+
+template <int RHEO, int Q>
+constexpr int kSlot = plane_slot(RHEO, Q);
+
+// Shared memory holds one record per point of the box: the values of all its
+// planes side by side, so a value's address is the record's plus a constant
+// the compiler folds into the load. The record length is odd (one word of
+// padding for bbm), so neighbouring threads, on neighbouring records, fall
+// into different banks.
+template <int RHEO>
+constexpr int kRecord = plane_slot(RHEO, N_PLANES) | 1;
 
 template <typename T>
 struct Planes {
-  T* p[N_PLANES];
+  const T* p[N_PLANES];
+};
+
+template <typename T>
+struct StateOut {
+  T* p[N_STATE];
 };
 
 template <typename T>
@@ -96,49 +207,71 @@ __device__ __forceinline__ T vmin(T a, T b) { return (a != a || a < b) ? a : b; 
 template <typename T>
 __device__ __forceinline__ T fast_pow(T x, const Coef<T>& k) {
   if (k.pow_generic) return pow(x, k.pow_e);
-  T out = T(1);
-  bool have = false;
-  T acc = x;
-  for (int n = k.pow_n; n; n >>= 1) {
-    if (n & 1) {
-      out = have ? out * acc : acc;
-      have = true;
-    }
-    acc = acc * acc;
+  // the loop `for (n = pow_n; n; n >>= 1) { if (n & 1) out = have ? out * acc
+  // : acc; acc *= acc; }` written out for the exponents the host allows
+  // (0..8): the same products in the same order, without the loop's tests
+  const T x2 = x * x, x4 = x2 * x2;
+  T out;
+  switch (k.pow_n) {
+    case 0: out = T(1); break;
+    case 1: out = x; break;
+    case 2: out = x2; break;
+    case 3: out = x * x2; break;
+    case 4: out = x4; break;
+    case 5: out = x * x4; break;
+    case 6: out = x2 * x4; break;
+    case 7: out = (x * x2) * x4; break;
+    default: out = x4 * x4; break;  // 8
   }
   if (k.pow_half) out = out * sqrt(x + T(1e-20));
   return out;
 }
 
+// Row and column of index idx in rows of w points, w >= 1, without the
+// integer division (some 45 instructions a point): (idx + 0.5) / w lies at
+// least 0.5 / w from an integer, far more than the float product's error
+// for any idx a block can hold.
+struct Rows {
+  int w;
+  float inv;
+  __device__ __forceinline__ explicit Rows(int w_) : w(w_), inv(1.0f / static_cast<float>(w_)) {}
+  __device__ __forceinline__ void split(int idx, int& r, int& c) const {
+    r = __float2int_rz((static_cast<float>(idx) + 0.5f) * inv);
+    c = idx - r * w;
+  }
+};
+
+// Plane Q of the point whose record `pt` points to.
+#define SM(Q) pt[kSlot<RHEO, Q>]
+
+// One cell, `pt` its record and `row` the words of one row of records: its
+// corner nodes are the records at 0, +1, +row, +row+1.
 template <typename T, int RHEO>
-__global__ void cell_stage(Planes<T> P, Coef<T> k) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i >= k.nx || j >= k.ny) return;
-  const int c = j * k.nx + i;
-  const int sw = j * (k.nx + 1) + i, se = sw + 1, nw = sw + k.nx + 1, ne = nw + 1;
+__device__ __forceinline__ void cell_update(T* pt, int row, const Coef<T>& k) {
+  constexpr int sw = 0, se = kRecord<RHEO>;
+  const int nw = row, ne = row + kRecord<RHEO>;
 
   // strain rates (stencil.strain_rates)
-  const T* u = P.p[VT_U];
-  const T* v = P.p[VT_V];
+  const T* u = pt + kSlot<RHEO, VT_U>;
+  const T* v = pt + kSlot<RHEO, VT_V>;
   const T ua = u[ne] - u[sw], ub = u[se] - u[nw];
   const T va = v[ne] - v[sw], vb = v[se] - v[nw];
   const T dudx = (ua + ub) * k.r, dudy = (ua - ub) * k.r;
   const T dvdx = (va + vb) * k.r, dvdy = (va - vb) * k.r;
   const T eps11 = dudx, eps22 = dvdy, eps12 = T(0.5) * (dudy + dvdx);
 
-  T sxx = P.p[SXX][c], syy = P.p[SYY][c], sxy = P.p[SXY][c];
-  if (RHEO == BBM) {
+  T sxx = SM(SXX), syy = SM(SYY), sxy = SM(SXY);
+  if constexpr (RHEO == BBM) {
     // rheology.bbm_update_planes with the loop-invariant planes
-    const T damage = P.p[DAMAGE][c];
-    const T expC = P.p[BBM_EXPC][c];
-    const bool has_ice = P.p[CONC][c] > k.min_c;
+    const T damage = SM(DAMAGE);
+    const T expC = SM(BBM_EXPC);
+    const bool has_ice = SM(CONC) > k.min_c;
     T sigma_n = T(0.5) * (sxx + syy);
     const T dmg_el = (T(1) - damage) * expC;
     const T time_viscous = k.lambda0 * fast_pow(vmax(dmg_el, T(1e-8)), k);
     const bool compressing = sigma_n < T(0);
     const T s_mag = vmax(-sigma_n, T(1e-15));
-    const T s_unyielded = compressing ? vmax(s_mag - P.p[BBM_PMAX][c], T(0)) : s_mag;
+    const T s_unyielded = compressing ? vmax(s_mag - SM(BBM_PMAX), T(0)) : s_mag;
     const T tv_s = vmax(time_viscous * s_mag, T(1e-15));
     const T mult = vmin(tv_s / (tv_s + k.dte * s_unyielded), k.mult_cap);
 
@@ -151,114 +284,263 @@ __global__ void cell_stage(Planes<T> P, Coef<T> k) {
     const T sigma_s = sqrt(half_diff * half_diff + sxy * sxy + T(1e-20));
     sigma_n = T(0.5) * (sxx + syy);
     const bool compressive = sigma_n < -k.compr_strength;
-    const T dcrit_num = compressive ? -k.compr_strength : P.p[COHESION][c];
+    const T dcrit_num = compressive ? -k.compr_strength : SM(COHESION);
     const T dcrit_den = compressive ? vmin(sigma_n, T(-1e-15))
                                     : vmax(sigma_s + k.tan_phi * sigma_n, T(1e-15));
     const T dcrit = dcrit_num / dcrit_den;
     const bool failing = (dcrit > T(0)) && (dcrit < T(1));
-    const T rtd = P.p[BBM_RTD][c] * sqrt(vmax(T(1) - damage, T(0)) + T(1e-20));
+    const T rtd = SM(BBM_RTD) * sqrt(vmax(T(1) - damage, T(0)) + T(1e-20));
     const T relax = failing ? (T(1) - dcrit) * k.dte * rtd : T(0);
 
     T damage_new = damage + (T(1) - damage) * relax;
     sxx = sxx * (T(1) - relax);
     syy = syy * (T(1) - relax);
     sxy = sxy * (T(1) - relax);
-    damage_new = vmax(damage_new - P.p[BBM_HEAL][c], T(0));
+    damage_new = vmax(damage_new - SM(BBM_HEAL), T(0));
 
-    P.p[SXX][c] = has_ice ? sxx : T(0);
-    P.p[SYY][c] = has_ice ? syy : T(0);
-    P.p[SXY][c] = has_ice ? sxy : T(0);
-    P.p[DAMAGE][c] = has_ice ? damage_new : T(0);
+    SM(SXX) = has_ice ? sxx : T(0);
+    SM(SYY) = has_ice ? syy : T(0);
+    SM(SXY) = has_ice ? sxy : T(0);
+    SM(DAMAGE) = has_ice ? damage_new : T(0);
   } else {
     // rheology.vp_update_planes with the loop-invariant pressure plane
     const T eps1 = eps11 + eps22, eps2 = eps11 - eps22;
     const T delta = sqrt(eps1 * eps1 + (eps2 * eps2 + T(4) * eps12 * eps12) * k.re2);
-    const T zeta = P.p[EVP_P][c] / (delta + k.delta_min);
+    const T zeta = SM(EVP_P) / (delta + k.delta_min);
     T sigma1 = sxx + syy, sigma2 = sxx - syy;
     sigma1 = sigma1 + k.ralpha1 * (zeta * (eps1 - delta) - sigma1);
     sigma2 = sigma2 + k.ralpha2 * (zeta * eps2 * k.re2 - sigma2);
     sxy = sxy + k.ralpha2 * (zeta * eps12 * k.re2 - sxy);
     sxx = T(0.5) * (sigma1 + sigma2);
     syy = T(0.5) * (sigma1 - sigma2);
-    const bool has_ice = P.p[THICK][c] > T(0);
-    P.p[SXX][c] = has_ice ? sxx : T(0);
-    P.p[SYY][c] = has_ice ? syy : T(0);
-    P.p[SXY][c] = has_ice ? sxy : T(0);
+    const bool has_ice = SM(THICK) > T(0);
+    SM(SXX) = has_ice ? sxx : T(0);
+    SM(SYY) = has_ice ? syy : T(0);
+    SM(SXY) = has_ice ? sxy : T(0);
   }
 }
 
+// One node, `pt` its record: its adjacent cells are the records at -row-1,
+// -row, -1, 0 (a cell outside the domain holds zero volume and zero stress).
 template <typename T, int RHEO>
-__global__ void node_stage(Planes<T> P, Coef<T> k) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = blockIdx.y * blockDim.y + threadIdx.y;
-  if (i > k.nx || j > k.ny) return;
-  const int n = j * (k.nx + 1) + i;
-
-  // stress divergence (stencil.stress_divergence): node (j,i) reads cells
-  // (j-1,i-1), (j-1,i), (j,i-1), (j,i); S = F1+F2, D = F1-F2, zero outside
+__device__ __forceinline__ void node_update(T* pt, int row, const Coef<T>& k) {
+  // stress divergence (stencil.stress_divergence): S = F1+F2, D = F1-F2
   T su[4], du[4], sv[4], dv[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    const int cj = j - 1 + (q >> 1), ci = i - 1 + (q & 1);
-    su[q] = du[q] = sv[q] = dv[q] = T(0);
-    if (cj >= 0 && cj < k.ny && ci >= 0 && ci < k.nx) {
-      const int c = cj * k.nx + ci;
-      const T vol = P.p[VOLUME][c];
-      const T fxx = vol * P.p[SXX][c], fyy = vol * P.p[SYY][c], fxy = vol * P.p[SXY][c];
-      su[q] = fxx + fxy;
-      du[q] = fxx - fxy;
-      sv[q] = fxy + fyy;
-      dv[q] = fxy - fyy;
-    }
+    const T* c = pt - ((q >> 1) ? 0 : row) - ((q & 1) ? 0 : kRecord<RHEO>);
+    const T vol = c[kSlot<RHEO, VOLUME>];
+    const T fxx = vol * c[kSlot<RHEO, SXX>], fyy = vol * c[kSlot<RHEO, SYY>], fxy = vol * c[kSlot<RHEO, SXY>];
+    su[q] = fxx + fxy;
+    du[q] = fxx - fxy;
+    sv[q] = fxy + fyy;
+    dv[q] = fxy - fyy;
   }
   const T gsu = -((su[0] - du[1] + du[2] - su[3]) * k.r);
   const T gsv = -((sv[0] - dv[1] + dv[2] - sv[3]) * k.r);
-  const T grad_u = P.p[GRAD_SSH_U][n] + gsu;
-  const T grad_v = P.p[GRAD_SSH_V][n] + gsv;
+  const T grad_u = SM(GRAD_SSH_U) + gsu;
+  const T grad_v = SM(GRAD_SSH_V) + gsv;
 
   // node solve
-  const T uice = P.p[VT_U][n], vice = P.p[VT_V][n];
+  const T uice = SM(VT_U), vice = SM(VT_V);
   T delu = T(0), delv = T(0);
-  if (RHEO == MEVP) {
-    delu = (P.p[VTM_U][n] - uice) / k.b_mevp;
-    delv = (P.p[VTM_V][n] - vice) / k.b_mevp;
+  if constexpr (RHEO == MEVP) {
+    delu = (SM(VTM_U) - uice) / k.b_mevp;
+    delv = (SM(VTM_V) - vice) / k.b_mevp;
   }
-  const T dou = P.p[OCEAN_U][n] - uice, dov = P.p[OCEAN_V][n] - vice;
+  const T dou = SM(OCEAN_U) - uice, dov = SM(OCEAN_V) - vice;
   const T c_prime = k.cw * sqrt(dou * dou + dov * dov + T(1e-20));
-  const T tau_b = P.p[C_BU][n] / (sqrt(uice * uice + vice * vice + T(1e-20)) + k.u0);
-  const T dom = P.p[DTE_OVER_MASS][n];
-  const T alpha = T(1) + P.p[DOM_COS][n] * c_prime + dom * tau_b;
-  const T beta = P.p[BETA_COR][n] + P.p[DOM_SIN][n] * c_prime;
+  const T tau_b = SM(C_BU) / (sqrt(uice * uice + vice * vice + T(1e-20)) + k.u0);
+  const T dom = SM(DTE_OVER_MASS);
+  const T alpha = T(1) + SM(DOM_COS) * c_prime + dom * tau_b;
+  const T beta = SM(BETA_COR) + SM(DOM_SIN) * c_prime;
   const T rdenom = T(1) / (alpha * alpha + beta * beta);
-  const T tau_x = P.p[TAU_AX][n] + c_prime * P.p[OCN_ROT_X][n];
-  const T tau_y = P.p[TAU_AY][n] + c_prime * P.p[OCN_ROT_Y][n];
-  const T grad_x = grad_u * P.p[RLMASS][n];
-  const T grad_y = grad_v * P.p[RLMASS][n];
+  const T tau_x = SM(TAU_AX) + c_prime * SM(OCN_ROT_X);
+  const T tau_y = SM(TAU_AY) + c_prime * SM(OCN_ROT_Y);
+  const T rlmass = SM(RLMASS);
+  const T grad_x = grad_u * rlmass;
+  const T grad_y = grad_v * rlmass;
   const T A = uice + dom * (grad_x + tau_x) + delu;
   const T B = vice + dom * (grad_y + tau_y) + delv;
-  const bool solve = P.p[SOLVE][n] > T(0.5);
+  const bool solve = SM(SOLVE) > T(0.5);
   const T u_new = solve ? (alpha * A + beta * B) * rdenom : uice;
   const T v_new = solve ? (alpha * B - beta * A) * rdenom : vice;
-  P.p[VT_U][n] = u_new;
-  P.p[VT_V][n] = v_new;
+  SM(VT_U) = u_new;
+  SM(VT_V) = v_new;
 
   // total displacement
-  if (RHEO != MEVP) {
-    P.p[UT_U][n] = P.p[UT_U][n] + k.dte * u_new;
-    P.p[UT_V][n] = P.p[UT_V][n] + k.dte * v_new;
+  if constexpr (RHEO != MEVP) {
+    SM(UT_U) = SM(UT_U) + k.dte * u_new;
+    SM(UT_V) = SM(UT_V) + k.dte * v_new;
   }
 }
 
-template <typename T, int RHEO>
-int run(const Planes<T>& P, const Coef<T>& k, int steps, cudaStream_t stream) {
-  const dim3 block(32, 8);
-  const dim3 cells((k.nx + block.x - 1) / block.x, (k.ny + block.y - 1) / block.y);
-  const dim3 nodes((k.nx + block.x) / block.x, (k.ny + block.y) / block.y);
-  for (int s = 0; s < steps; ++s) {
-    cell_stage<T, RHEO><<<cells, block, 0, stream>>>(P, k);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    node_stage<T, RHEO><<<nodes, block, 0, stream>>>(P, k);
+#undef SM
+
+// Where point idx of the block's box lies in the domain.
+struct Point {
+  int gn, gc;  // offsets into a node plane and a cell plane
+  bool in_node, in_cell;
+};
+
+template <typename T, int RHEO, int Q>
+__device__ __forceinline__ void load_plane(const Planes<T>& P, T* rec, const Point& pt) {
+  if constexpr (plane_used(RHEO, Q)) {
+    // an asynchronous copy (cp.async) straight into shared memory: a thread
+    // has all its planes' loads in flight at once, none staged in a register
+    T* dst = rec + kSlot<RHEO, Q>;
+    if (is_node(Q) ? pt.in_node : pt.in_cell) {
+      __pipeline_memcpy_async(dst, P.p[Q] + (is_node(Q) ? pt.gn : pt.gc), sizeof(T));
+    } else {
+      *dst = T(0);
+    }
+  }
+}
+
+template <typename T, int RHEO, int... Q>
+__device__ __forceinline__ void load_planes(const Planes<T>& P, T* rec, const Point& pt,
+                                            std::integer_sequence<int, Q...>) {
+  (load_plane<T, RHEO, Q>(P, rec, pt), ...);
+}
+
+template <typename T, int RHEO, int Q>
+__device__ __forceinline__ void store_plane(const StateOut<T>& O, const T* rec, const Point& pt) {
+  if constexpr (plane_used(RHEO, Q)) {
+    if (is_node(Q) || pt.in_cell) O.p[Q][is_node(Q) ? pt.gn : pt.gc] = rec[kSlot<RHEO, Q>];
+  }
+}
+
+template <typename T, int RHEO, int... Q>
+__device__ __forceinline__ void store_planes(const StateOut<T>& O, const T* rec, const Point& pt,
+                                             std::integer_sequence<int, Q...>) {
+  (store_plane<T, RHEO, Q>(O, rec, pt), ...);
+}
+
+__device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
+__device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+
+// ksub substeps of the block's tile (see the header). P holds the state slot
+// to read and the coefficients, O the state slot to write.
+template <typename T, int RHEO, int MAX_THREADS>
+__global__ void __launch_bounds__(MAX_THREADS)
+blocked_substeps(Planes<T> P, StateOut<T> O, Coef<T> k, int tile_h, int tile_w, int ksub) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  constexpr int R = kRecord<RHEO>;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  CLOCK(t_start);
+
+  // the tile: nodes [j0, j1) x [i0, i1); the box: the tile and its halo
+  const int j0 = blockIdx.y * tile_h, i0 = blockIdx.x * tile_w;
+  const int j1 = imin(j0 + tile_h, k.ny + 1), i1 = imin(i0 + tile_w, k.nx + 1);
+  const int a = j0 - ksub, c = i0 - ksub;  // the box's first row and column
+  const int H = j1 - j0 + 2 * ksub, W = i1 - i0 + 2 * ksub;
+  const int box = H * W;
+
+  // load, zero outside the domain
+  const Rows box_rows(W);
+  for (int idx = tid; idx < box; idx += nthr) {
+    int r, cc;
+    box_rows.split(idx, r, cc);
+    const int gj = a + r, gi = c + cc;
+    Point pt;
+    pt.in_node = gj >= 0 && gj <= k.ny && gi >= 0 && gi <= k.nx;
+    pt.in_cell = pt.in_node && gj < k.ny && gi < k.nx;
+    pt.gn = gj * (k.nx + 1) + gi;
+    pt.gc = gj * k.nx + gi;
+    load_planes<T, RHEO>(P, sm + idx * R, pt, std::make_integer_sequence<int, N_PLANES>{});
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  CLOCK(t_loaded);
+
+  for (int s = 1; s <= ksub; ++s) {
+    {  // cells: rows [a+s-1, a+H-s) of the domain's [0, ny), columns alike
+      const int rlo = imax(a + s - 1, 0) - a, rhi = imin(a + H - s, k.ny) - a;
+      const int clo = imax(c + s - 1, 0) - c, chi = imin(c + W - s, k.nx) - c;
+      const Rows rows(imax(chi - clo, 1));
+      const int n = imax(rhi - rlo, 0) * imax(chi - clo, 0);
+      for (int idx = tid; idx < n; idx += nthr) {
+        int lr, lc;
+        rows.split(idx, lr, lc);
+        cell_update<T, RHEO>(sm + ((rlo + lr) * W + clo + lc) * R, W * R, k);
+      }
+    }
+    __syncthreads();
+    {  // nodes: rows [a+s, a+H-s) of the domain's [0, ny], columns alike
+      const int rlo = imax(a + s, 0) - a, rhi = imin(a + H - s, k.ny + 1) - a;
+      const int clo = imax(c + s, 0) - c, chi = imin(c + W - s, k.nx + 1) - c;
+      const Rows rows(imax(chi - clo, 1));
+      const int n = imax(rhi - rlo, 0) * imax(chi - clo, 0);
+      for (int idx = tid; idx < n; idx += nthr) {
+        int lr, lc;
+        rows.split(idx, lr, lc);
+        node_update<T, RHEO>(sm + ((rlo + lr) * W + clo + lc) * R, W * R, k);
+      }
+    }
+    __syncthreads();
+  }
+
+  CLOCK(t_computed);
+
+  // store the tile
+  const Rows tile_rows(i1 - i0);
+  const int n = (j1 - j0) * (i1 - i0);
+  for (int idx = tid; idx < n; idx += nthr) {
+    int lr, lc;
+    tile_rows.split(idx, lr, lc);
+    const int gj = j0 + lr, gi = i0 + lc;
+    Point pt;
+    pt.in_node = true;
+    pt.in_cell = gj < k.ny && gi < k.nx;
+    pt.gn = gj * (k.nx + 1) + gi;
+    pt.gc = gj * k.nx + gi;
+    store_planes<T, RHEO>(O, sm + ((lr + ksub) * W + lc + ksub) * R, pt,
+                          std::make_integer_sequence<int, N_STATE>{});
+  }
+#ifdef NEXTSIM_SUBSTEP_CLOCKS
+  __syncthreads();
+  if (tid == 0) {
+    atomicAdd(&g_clocks[0], static_cast<unsigned long long>(t_loaded - t_start));
+    atomicAdd(&g_clocks[1], static_cast<unsigned long long>(t_computed - t_loaded));
+    atomicAdd(&g_clocks[2], static_cast<unsigned long long>(clock64() - t_computed));
+    atomicAdd(&g_clocks[3], 1ull);
+  }
+#endif
+}
+
+template <typename T, int RHEO, int MAX_THREADS>
+int run(const Planes<T>& P0, const StateOut<T>& B, const Coef<T>& k, const SubstepPlan& plan,
+        const int* launch_steps, cudaStream_t stream) {
+  // the plan must describe this kernel's tile: a mismatch would write
+  // outside the block's shared memory
+  constexpr int n_planes = plane_slot(RHEO, N_PLANES);
+  const long long box = static_cast<long long>(plan.tile_h + 2 * plan.halo) * (plan.tile_w + 2 * plan.halo);
+  if (plan.n_planes != n_planes || plan.tile_h < 1 || plan.tile_w < 1 || plan.halo < 1 ||
+      plan.threads < 1 || plan.threads > MAX_THREADS ||
+      box * kRecord<RHEO> * static_cast<long long>(sizeof(T)) > plan.smem_bytes ||
+      plan.blocks_y * plan.tile_h < k.ny + 1 || plan.blocks_x * plan.tile_w < k.nx + 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = blocked_substeps<T, RHEO, MAX_THREADS>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  // slot 0 is P0's state, slot 1 is B
+  Planes<T> in[2] = {P0, P0};
+  StateOut<T> out[2];
+  for (int q = 0; q < N_STATE; ++q) {
+    in[1].p[q] = B.p[q];
+    out[0].p[q] = B.p[q];                      // a launch that reads slot 0 writes slot 1
+    out[1].p[q] = const_cast<T*>(P0.p[q]);     // and the other way round
+  }
+  const dim3 grid(plan.blocks_x, plan.blocks_y);
+  for (int g = 0; g < plan.n_launches; ++g) {
+    const int ksub = launch_steps[g];
+    if (ksub < 1 || ksub > plan.halo) return static_cast<int>(cudaErrorInvalidValue);
+    kernel<<<grid, plan.threads, plan.smem_bytes, stream>>>(in[g % 2], out[g % 2], k, plan.tile_h,
+                                                             plan.tile_w, ksub);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -266,9 +548,14 @@ int run(const Planes<T>& P, const Coef<T>& k, int steps, cudaStream_t stream) {
 }
 
 template <typename T>
-int substeps(void* const* planes, const SubstepParams* h, void* stream) {
+int substeps(void* const* planes, void* const* state_b, const SubstepParams* h, const SubstepPlan* plan,
+             const int* launch_steps, void* stream) {
+  // fast_pow writes out the exponents 0..8, the ones the host sends
+  if (!h->pow_generic && (h->pow_n < 0 || h->pow_n > 8)) return static_cast<int>(cudaErrorInvalidValue);
   Planes<T> P;
-  for (int q = 0; q < N_PLANES; ++q) P.p[q] = static_cast<T*>(planes[q]);
+  for (int q = 0; q < N_PLANES; ++q) P.p[q] = static_cast<const T*>(planes[q]);
+  StateOut<T> B;
+  for (int q = 0; q < N_STATE; ++q) B.p[q] = static_cast<T*>(state_b[q]);
   Coef<T> k;
   k.ny = h->ny;
   k.nx = h->nx;
@@ -295,24 +582,41 @@ int substeps(void* const* planes, const SubstepParams* h, void* stream) {
   k.u0 = T(h->u0);
   k.b_mevp = T(h->b_mevp);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 1024 threads a block leave 64 registers a thread, enough in float32; a
+  // float64 value takes two, so float64 blocks have at most 512
+  constexpr int max_threads = sizeof(T) == 4 ? 1024 : 512;
   switch (h->rheology) {
-    case BBM: return run<T, BBM>(P, k, h->steps, s);
-    case EVP: return run<T, EVP>(P, k, h->steps, s);
-    case MEVP: return run<T, MEVP>(P, k, h->steps, s);
+    case BBM: return run<T, BBM, max_threads>(P, B, k, *plan, launch_steps, s);
+    case EVP: return run<T, EVP, max_threads>(P, B, k, *plan, launch_steps, s);
+    case MEVP: return run<T, MEVP, max_threads>(P, B, k, *plan, launch_steps, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-extern "C" int nextsim_substeps_f32(void* const* planes, const SubstepParams* p, void* stream) {
-  return substeps<float>(planes, p, stream);
+extern "C" int nextsim_substeps_f32(void* const* planes, void* const* state_b, const SubstepParams* p,
+                                    const SubstepPlan* plan, const int* launch_steps, void* stream) {
+  return substeps<float>(planes, state_b, p, plan, launch_steps, stream);
 }
 
-extern "C" int nextsim_substeps_f64(void* const* planes, const SubstepParams* p, void* stream) {
-  return substeps<double>(planes, p, stream);
+extern "C" int nextsim_substeps_f64(void* const* planes, void* const* state_b, const SubstepParams* p,
+                                    const SubstepPlan* plan, const int* launch_steps, void* stream) {
+  return substeps<double>(planes, state_b, p, plan, launch_steps, stream);
 }
 
 extern "C" const char* nextsim_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef NEXTSIM_SUBSTEP_CLOCKS
+// Copies the sums (load, compute, store, blocks) to `out` after the device
+// has finished, and sets them to zero.
+extern "C" int nextsim_substep_clocks(unsigned long long* out) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out, g_clocks, sizeof(g_clocks));
+  const unsigned long long zero[4] = {0, 0, 0, 0};
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_clocks, zero, sizeof(zero));
+  return static_cast<int>(err);
+}
+#endif

@@ -1,5 +1,5 @@
-"""The momentum substep loop on the GPU: wrapper, plain version and loader
-of the CUDA kernel in ``nextsim_tpu_torch/csrc/momentum_substep.cu``.
+"""The momentum substep loop on the GPU: wrapper, launch plan, plain versions
+and loader of the CUDA kernel in ``nextsim_tpu_torch/csrc/momentum_substep.cu``.
 
 This module is the counterpart of nextsim_tpu/ops/momentum_pallas.py, whose
 ``substep_loop_blocked`` runs the substep loop as one blocked Pallas TPU
@@ -13,29 +13,43 @@ mEVP displacement staying with the caller.
   the card.
 * A carry on a CUDA device runs the kernel, or raises: on a dtype other
   than float32/float64, on a plane of the wrong shape, dtype or device, or
-  not contiguous, and on a failed build or launch. Nothing falls back to the
-  plain version on the card.
+  not contiguous, on a plan that does not fit the shared memory, and on a
+  failed build or launch. Nothing falls back to the plain version on the
+  card.
+
+The kernel is temporally blocked: one launch advances every tile of the
+grid by ``k`` substeps in shared memory, on the tile plus a halo of ``k``
+points, reading one set of the 8 state planes and writing a second one
+(ping-pong), so a loop is ``ceil(steps / k)`` launches. ``launch_plan``
+computes the tile, ``k``, the grid of blocks, the shared-memory bytes and
+the launches' substep counts; the kernel holds no second copy of that
+arithmetic. ``substep_loop_blocked_reference`` follows the same plan tile
+by tile in plain PyTorch: it pins the schedule (halo width, domain edges,
+ragged tiles, the remainder launch, the ping-pong) on the CPU.
 
 The kernel is built with ``nvcc`` for sm_90a on first use, into
 ``nextsim_tpu_torch/build/`` (named by a hash of the source and flags), and
 loaded with ctypes. ``launches`` counts the kernel launches the wrapper has
-issued (two per substep: the cell stage and the node stage).
+made: ``len(plan.launches)`` a loop (``launches_for``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+from types import SimpleNamespace
 
 import torch
 
 from nextsim_tpu_torch.core import constants as phys
 
-#: kernel launches issued by ``substep_loop`` (two per substep)
+#: kernel launches made by ``substep_loop`` (``launches_for`` a loop)
 launches = 0
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -63,7 +77,186 @@ _CELL_USED = {
     "mevp": ("volume", "thick", "evp_P"),
 }
 _NODE_USED = _NODE[:15]
+#: state planes each rheology updates; the others pass through the loop
+_STATE_USED = {
+    "bbm": _STATE,
+    "evp": _STATE[:7],
+    "mevp": ("vt_u", "vt_v", "sxx", "syy", "sxy"),
+}
 _RHEOLOGY = {"bbm": 0, "evp": 1, "mevp": 2}
+
+#: dynamic shared memory one block may use on an H100 (sm_90: 227 KB)
+SMEM_LIMIT = 232_448
+#: streaming multiprocessors of an H100 SXM; the wrapper passes the device's own
+H100_SMS = 132
+#: threads a block may have: 1024 leave 64 registers a thread, which float64
+#: arithmetic (two registers a value) would spill
+_MAX_THREADS = {torch.float32: 1024, torch.float64: 512}
+#: most substeps a launch that ``launch_plan`` considers
+_MAX_K = 8
+
+# The cost model behind the default plan, in SM clocks, fitted to the
+# kernel's own clock counters on an H100 (``python3 -m
+# nextsim_tpu_torch.tools.tune_substep --clocks``; PERF.md has the
+# readings). A block takes the time to load its box and to store its tile
+# (device memory, all blocks at once), plus the time of every cell and node
+# update of its shrinking regions; a launch takes one block's time for every
+# round of ``sms`` blocks, plus the gap between dependent launches.
+_CLK_PER_BYTE = 0.08     # load and store, per byte of a plane's box or tile
+_CLK_PER_UPDATE = 3.0    # one cell or node update, bbm float32
+_CLK_PER_STAGE = 1200.0  # least time of a stage: one pass of its dependent instructions
+_CLK_PER_BLOCK = 1000.0  # start and drain of a block
+_CLK_PER_LAUNCH = 6000.0
+#: arithmetic of a cell + node update relative to bbm (97 + 94 operations)
+_UPDATE_WEIGHT = {"bbm": 1.0, "evp": (51 + 94) / (97 + 94), "mevp": (51 + 94) / (97 + 94)}
+_F64_UPDATE_WEIGHT = 2.2
+
+
+def tile_planes(dyn_type: str) -> tuple:
+    """Names of the planes the kernel keeps on a tile, in ``_PLANES`` order
+    (``plane_used`` in the CUDA source)."""
+    used = set(_STATE_USED[dyn_type]) | set(_CELL_USED[dyn_type]) | set(_NODE_USED)
+    if dyn_type == "mevp":
+        used |= {"vtm_u", "vtm_v"}
+    return tuple(n for n in _PLANES if n in used)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one substep loop runs on the card: every block owns a tile of
+    ``tile_h`` x ``tile_w`` nodes (and the cells of the same indices), loads
+    it with a halo of ``k`` points and advances it ``launches[g]`` substeps
+    in launch ``g``."""
+
+    ny: int
+    nx: int
+    steps: int
+    itemsize: int
+    dyn_type: str
+    tile_h: int
+    tile_w: int
+    k: int
+    threads: int
+    blocks_y: int
+    blocks_x: int
+    n_planes: int
+    smem_bytes: int
+    launches: tuple
+
+    def tiles(self):
+        """The tiles as (j0, j1, i0, i1): nodes [j0, j1) x [i0, i1)."""
+        for by in range(self.blocks_y):
+            for bx in range(self.blocks_x):
+                j0, i0 = by * self.tile_h, bx * self.tile_w
+                yield (j0, min(j0 + self.tile_h, self.ny + 1),
+                       i0, min(i0 + self.tile_w, self.nx + 1))
+
+
+def _best_tile(ny, nx, steps, itemsize, dyn_type, sms, smem_limit, heights, widths, ks):
+    """(tile_h, tile_w, k) of least modelled time among the given candidates
+    whose box fits ``smem_limit``, or None when none fits."""
+    import numpy as np
+
+    th = np.asarray(heights)[:, None, None]
+    tw = np.asarray(widths)[None, :, None]
+    k = np.asarray(ks)[None, None, :]
+    n_planes = len(tile_planes(dyn_type))
+    box = (th + 2 * k) * (tw + 2 * k)
+    fits = box * ((n_planes | 1) * itemsize) <= smem_limit
+    if not fits.any():
+        return None
+    # cell and node stages of substeps 1..k: the box shrunk by s (cells by
+    # s - 1 on the low side)
+    weight = _UPDATE_WEIGHT[dyn_type] * (_F64_UPDATE_WEIGHT if itemsize == 8 else 1.0)
+    stages = np.zeros(box.shape)
+    for s in range(1, int(k.max()) + 1):
+        cells = (th + 2 * k - 2 * s + 1) * (tw + 2 * k - 2 * s + 1)
+        nodes = (th + 2 * k - 2 * s) * (tw + 2 * k - 2 * s)
+        stages += (k >= s) * (np.maximum(_CLK_PER_UPDATE * weight * cells, _CLK_PER_STAGE)
+                              + np.maximum(_CLK_PER_UPDATE * weight * nodes, _CLK_PER_STAGE))
+    moved = box * n_planes + th * tw * len(_STATE_USED[dyn_type])
+    block = _CLK_PER_BYTE * itemsize * moved + stages + _CLK_PER_BLOCK
+    rounds = -(-(-(-(ny + 1) // th) * -(-(nx + 1) // tw)) // sms)
+    launches = -(-max(steps, 1) // k)
+    cost = np.where(fits, launches * (rounds * block + _CLK_PER_LAUNCH), np.inf)
+    i, j, m = np.unravel_index(int(np.argmin(cost)), cost.shape)
+    return int(th[i, 0, 0]), int(tw[0, j, 0]), int(k[0, 0, m])
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(ny: int, nx: int, steps: int, dtype, dyn_type: str, tile=None,
+                k=None, threads=None, sms: int = H100_SMS,
+                smem_limit: int = SMEM_LIMIT) -> LaunchPlan:
+    """The launch plan of a ``steps``-substep loop on cells ``(ny, nx)``.
+
+    What is not given -- the ``tile`` (height, width) in nodes, the substeps
+    a launch ``k`` -- is chosen for the least time under the module's cost
+    model on a card of ``sms`` multiprocessors: large tiles and many substeps
+    a launch cut the halo's share and the launches, while the number of
+    blocks has to fill whole rounds of ``sms``. A given tile is cut to the
+    grid and a given ``k`` to ``steps``; a given tile then shrinks, its
+    longer side first, until the box of ``(tile_h + 2k) * (tile_w + 2k)``
+    points times the rheology's planes fits ``smem_limit`` bytes. Raises
+    ValueError when not even a tile of one node fits.
+    """
+    if dyn_type not in _RHEOLOGY:
+        raise ValueError(f"substep_loop: unknown rheology {dyn_type!r}")
+    if dtype not in _MAX_THREADS:
+        raise TypeError(f"substep_loop: the CUDA kernel takes float32 or float64, not {dtype}")
+    if ny < 1 or nx < 1 or steps < 0 or sms < 1:
+        raise ValueError(f"substep_loop: no plan for a {ny} x {nx} grid and {steps} substeps")
+    threads = _MAX_THREADS[dtype] if threads is None else threads
+    if not 1 <= threads <= _MAX_THREADS[dtype]:
+        raise ValueError(f"substep_loop: {threads} threads a block is no plan "
+                         f"(1 to {_MAX_THREADS[dtype]} for {dtype})")
+    if tile is not None and min(tile) < 1:
+        raise ValueError(f"substep_loop: a tile of {tile[0]} x {tile[1]} nodes is no plan")
+    itemsize = torch.finfo(dtype).bits // 8
+    n_planes = len(tile_planes(dyn_type))
+
+    def smem(h, w, halo):
+        # one record per point of the box: its planes' values and, for an
+        # even count, a word of padding (kRecord in the CUDA source)
+        return (h + 2 * halo) * (w + 2 * halo) * (n_planes | 1) * itemsize
+
+    most_k = max(1, steps)
+    heights = range(1, min(ny + 1, 128) + 1) if tile is None else [min(tile[0], ny + 1)]
+    widths = range(1, min(nx + 1, 128) + 1) if tile is None else [min(tile[1], nx + 1)]
+    ks = range(1, min(_MAX_K, most_k) + 1) if k is None else [max(1, min(k, most_k))]
+    best = _best_tile(ny, nx, steps, itemsize, dyn_type, sms, smem_limit, heights, widths, ks)
+    th, tw, k = best if best is not None else (heights[-1], widths[-1], ks[0])
+    while smem(th, tw, k) > smem_limit and (th > 1 or tw > 1):
+        if th >= tw:
+            th -= 1
+        else:
+            tw -= 1
+    if tile is None and best is None or smem(th, tw, k) > smem_limit:
+        raise ValueError(
+            f"substep_loop: {k} substeps a launch need {smem(1, 1, k)} bytes of shared memory for "
+            f"a tile of one node ({n_planes} planes of {itemsize} bytes), above {smem_limit}"
+        )
+    return LaunchPlan(
+        ny=ny, nx=nx, steps=steps, itemsize=itemsize, dyn_type=dyn_type,
+        tile_h=th, tile_w=tw, k=k, threads=threads,
+        blocks_y=-(-(ny + 1) // th), blocks_x=-(-(nx + 1) // tw),
+        n_planes=n_planes, smem_bytes=smem(th, tw, k),
+        launches=(k,) * (steps // k) + ((steps % k,) if steps % k else ()),
+    )
+
+
+def launches_for(steps: int, ny: int, nx: int, dtype=torch.float32, dyn_type: str = "bbm",
+                 sms: int = H100_SMS) -> int:
+    """Kernel launches of one ``steps``-substep loop under the default plan."""
+    return len(launch_plan(ny, nx, steps, dtype, dyn_type, sms=sms).launches)
+
+
+class _Plan(ctypes.Structure):
+    """Mirror of ``SubstepPlan`` in the CUDA source."""
+
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "tile_h", "tile_w", "halo", "threads", "blocks_y", "blocks_x", "n_planes",
+        "smem_bytes", "n_launches", "pad_",
+    )]
 
 
 class _Params(ctypes.Structure):
@@ -94,6 +287,61 @@ def substep_loop_reference(consts, carry, steps: int, dte: float, dt: float,
     return carry
 
 
+def _box(a: torch.Tensor, r0: int, r1: int, c0: int, c1: int) -> torch.Tensor:
+    """``a[r0:r1, c0:c1]`` with zeros where the box leaves the plane."""
+    out = a.new_zeros((r1 - r0, c1 - c0))
+    rs, re = max(r0, 0), min(r1, a.shape[0])
+    cs, ce = max(c0, 0), min(c1, a.shape[1])
+    if re > rs and ce > cs:
+        out[rs - r0:re - r0, cs - c0:ce - c0] = a[rs:re, cs:ce]
+    return out
+
+
+def substep_loop_blocked_reference(consts, carry, steps: int, dte: float, dt: float,
+                                   dx: float, dyn_type: str, p, plan: LaunchPlan = None):
+    """The kernel's schedule in plain PyTorch: for every launch of ``plan``
+    and every tile, cut the tile and its halo of ``k`` points out of every
+    plane (zeros outside the domain), run the launch's substeps of
+    ``momentum._build_substep`` on the cut, and copy the tile alone into the
+    other set of state planes. Equals ``substep_loop_reference`` bitwise;
+    the tests use it, no model path does."""
+    from nextsim_tpu_torch.ops import momentum
+
+    carry = tuple(carry)
+    ny1, nx1 = carry[0].shape
+    ny, nx = ny1 - 1, nx1 - 1
+    if plan is None:
+        plan = launch_plan(ny, nx, steps, carry[0].dtype, dyn_type)
+    if (plan.ny, plan.nx, plan.steps, plan.dyn_type) != (ny, nx, steps, dyn_type):
+        raise ValueError("substep_loop_blocked_reference: the plan is for another loop")
+    slots = [[c.clone() for c in carry], [torch.empty_like(c) for c in carry]]
+    for g, k in enumerate(plan.launches):
+        src, dst = slots[g % 2], slots[(g + 1) % 2]
+        for j0, j1, i0, i1 in plan.tiles():
+            # node box [j0-k, j1+k) x [i0-k, i1+k); its cells lack the last
+            # row and column
+            nbox = (j0 - k, j1 + k, i0 - k, i1 + k)
+            cbox = (j0 - k, j1 + k - 1, i0 - k, i1 + k - 1)
+
+            def cut(a):
+                if not isinstance(a, torch.Tensor) or a.ndim != 2:
+                    return a
+                return _box(a, *(nbox if tuple(a.shape) == (ny1, nx1) else cbox))
+
+            tile_consts = SimpleNamespace(**{n: cut(v) for n, v in vars(consts).items()})
+            body = momentum._build_substep(p, dyn_type, dte, dt, dx, tile_consts)
+            tile = tuple(cut(a) for a in src)
+            for _ in range(k):
+                tile = body(tile)
+            for name, out, t in zip(_STATE, dst, tile):
+                if name.startswith(("vt", "ut")):
+                    out[j0:j1, i0:i1] = t[k:k + j1 - j0, k:k + i1 - i0]
+                else:
+                    cj, ci = min(j1, ny), min(i1, nx)
+                    out[j0:cj, i0:ci] = t[k:k + cj - j0, k:k + ci - i0]
+    return tuple(slots[len(plan.launches) % 2])
+
+
 # ---------------------------------------------------------------------------
 # Wrapper
 # ---------------------------------------------------------------------------
@@ -110,7 +358,7 @@ def substep_loop(consts, carry, steps: int, dte: float, dt: float, dx: float,
     return _substep_loop_cuda(consts, carry, steps, dte, dt, dx, dyn_type, p)
 
 
-def _substep_loop_cuda(consts, carry, steps, dte, dt, dx, dyn_type, p):
+def _substep_loop_cuda(consts, carry, steps, dte, dt, dx, dyn_type, p, plan: LaunchPlan = None):
     global launches
     if dyn_type not in _RHEOLOGY:
         raise ValueError(f"substep_loop: unknown rheology {dyn_type!r}")
@@ -136,8 +384,9 @@ def _substep_loop_cuda(consts, carry, steps, dte, dt, dx, dyn_type, p):
     planes = {}
     for name, a in zip(_STATE, carry):
         shape = (ny1, nx1) if name.startswith(("vt", "ut")) else (ny, nx)
-        # the kernel updates the carry in place: work on copies, so the
-        # caller's tensors (e.g. the state's sigma) are left as they were
+        # the launches alternate between two sets of state planes: the first
+        # is a copy, so the caller's tensors (e.g. the state's sigma) are
+        # left as they were
         planes[name] = check(name, a, shape).clone()
     for name in _CELL_USED[dyn_type]:
         planes[name] = check(name, getattr(consts, name), (ny, nx))
@@ -148,21 +397,43 @@ def _substep_loop_cuda(consts, carry, steps, dte, dt, dx, dyn_type, p):
             a = a.to(dtype)  # the kernel tests solve > 0.5
         planes[name] = check(name, a, (ny1, nx1))
 
+    if plan is None:
+        sms = (torch.cuda.get_device_properties(device).multi_processor_count
+               if device.type == "cuda" else H100_SMS)
+        plan = launch_plan(ny, nx, steps, dtype, dyn_type, sms=sms)
+    if (plan.ny, plan.nx, plan.steps, plan.dyn_type, plan.itemsize) != (
+            ny, nx, steps, dyn_type, carry[0].element_size()):
+        raise ValueError("substep_loop: the plan is for another loop")
+    lib = _library()
+    if not plan.launches:
+        return tuple(planes[n] for n in _STATE)
+    # the second set; a plane the rheology does not update stays in the first
+    second = {n: torch.empty_like(planes[n]) for n in _STATE_USED[dyn_type]}
     ptrs = (ctypes.c_void_p * len(_PLANES))(
         *[planes[n].data_ptr() if n in planes else None for n in _PLANES]
     )
+    ptrs_b = (ctypes.c_void_p * len(_STATE))(
+        *[second[n].data_ptr() if n in second else None for n in _STATE]
+    )
+    c_plan = _Plan(
+        tile_h=plan.tile_h, tile_w=plan.tile_w, halo=plan.k, threads=plan.threads,
+        blocks_y=plan.blocks_y, blocks_x=plan.blocks_x, n_planes=plan.n_planes,
+        smem_bytes=plan.smem_bytes, n_launches=len(plan.launches), pad_=0,
+    )
+    launch_steps = (ctypes.c_int * len(plan.launches))(*plan.launches)
     params = _params(ny, nx, steps, dte, dt, dx, dyn_type, p)
-    lib = _library()
     fn = lib.nextsim_substeps_f32 if dtype == torch.float32 else lib.nextsim_substeps_f64
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ptrs, ctypes.byref(params), ctypes.c_void_p(stream))
+        err = fn(ptrs, ptrs_b, ctypes.byref(params), ctypes.byref(c_plan), launch_steps,
+                 ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(
             f"substep_loop: CUDA launch failed: {lib.nextsim_cuda_error_string(err).decode()}"
         )
-    launches += 2 * steps
-    return tuple(planes[n] for n in _STATE)
+    launches += len(plan.launches)
+    result = second if len(plan.launches) % 2 else planes
+    return tuple(result.get(n, planes[n]) for n in _STATE)
 
 
 def _params(ny, nx, steps, dte, dt, dx, dyn_type, p) -> _Params:
@@ -214,18 +485,18 @@ def _nvcc() -> str:
     )
 
 
-def build() -> Path:
+def build(flags=_NVCC_FLAGS) -> Path:
     """Compile the kernel into ``nextsim_tpu_torch/build/`` unless a library
     built from the same source and flags is there; returns its path."""
     global build_log
-    tag = hashlib.sha256(_SRC.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(_SRC.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     out = _BUILD_DIR / f"libmomentum_substep_{tag}.so"
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = _BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
     res = subprocess.run(
-        [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
+        [_nvcc(), *flags, "-o", str(tmp), str(_SRC)],
         capture_output=True, text=True,
     )
     if res.returncode != 0:
@@ -235,15 +506,21 @@ def build() -> Path:
     return out
 
 
+def load(path: Path):
+    """The built library at ``path`` with its functions' argument types."""
+    lib = ctypes.CDLL(str(path))
+    for name in ("nextsim_substeps_f32", "nextsim_substeps_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_Params),
+                       ctypes.POINTER(_Plan), ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.nextsim_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.nextsim_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name in ("nextsim_substeps_f32", "nextsim_substeps_f64"):
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(_Params), ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.nextsim_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.nextsim_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = load(build())
     return _lib

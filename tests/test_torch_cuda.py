@@ -19,8 +19,14 @@ gradient and varying currents into the kernel's node stage: one test holds
 the kernel against the plain version on such a state, and one checks that
 ``DatasetForcing`` hands the card the same planes as the CPU (bitwise).
 
+The kernel is temporally blocked (k substeps a launch on a shared-memory
+tile with a halo, ``momentum_cuda.launch_plan``): its launch counts are the
+plan's, and it is also held against ``substep_loop_blocked_reference``, the
+same plan in plain PyTorch, on a ragged grid with a remainder launch.
+
 Tolerances: the kernel is built without multiply-add contraction and
-transcribes the plain version's term order, so bbm and evp agree bitwise;
+transcribes the plain version's term order, and recomputing a halo point
+gives the bits of computing it once, so bbm and evp agree bitwise;
 mEVP's ``(vtm - vt) / (beta + 1)`` is a division by a Python scalar, which
 torch on CUDA computes through its reciprocal: rtol 1e-6 of the field's
 magnitude there.
@@ -51,18 +57,23 @@ def cuda():
     return torch.device("cuda")
 
 
-def _setup(dyn_type, dtype_name):
+def _setup(dyn_type, dtype_name, **grid):
     sim = Simulator(Config(overrides=dict(SQUARE, **{"setup.dynamics-type": dyn_type,
-                                                     "tpu.dtype": dtype_name})), device="cuda")
+                                                     "tpu.dtype": dtype_name}, **grid)), device="cuda")
     sim.step()  # a moving, stressed state
     ga = dict(sim.grid_arrays, cohesion=sim.c_fix + sim.c_alea * sim.state.random_number)
     consts, carry = momentum.substep_setup(sim.state, sim._next_forcing(), ga, sim.dt, sim.dyn)
     return sim, consts, carry
 
 
-def _loop(fn, sim, consts, carry, steps):
+def _loop(fn, sim, consts, carry, steps, **kw):
     return fn(consts, carry, steps, sim.dt / sim.dyn.substeps, sim.dt, sim.grid.dx,
-              sim.dyn.dynamics_type, sim.dyn)
+              sim.dyn.dynamics_type, sim.dyn, **kw)
+
+
+def _launches(sim, steps):
+    """Launches of one ``steps``-substep loop of ``sim`` under the default plan."""
+    return momentum_cuda.launches_for(steps, *sim.grid.shape, sim.dtype, sim.dyn.dynamics_type)
 
 
 @pytest.mark.parametrize("steps", [3, 40])
@@ -73,7 +84,7 @@ def test_kernel_matches_plain(cuda, dyn_type, dtype_name, steps):
     before = [c.clone() for c in carry]
     launches = momentum_cuda.launches
     out = _loop(momentum_cuda.substep_loop, sim, consts, carry, steps)
-    assert momentum_cuda.launches == launches + 2 * steps
+    assert momentum_cuda.launches == launches + _launches(sim, steps) < launches + steps
     ref = _loop(momentum_cuda.substep_loop_reference, sim, consts, carry, steps)
     torch.cuda.synchronize()
     for c, b in zip(carry, before):  # the caller's planes are left alone
@@ -84,6 +95,48 @@ def test_kernel_matches_plain(cuda, dyn_type, dtype_name, steps):
             torch.testing.assert_close(o, r, rtol=1e-6, atol=1e-6 * float(r.abs().max()))
         else:
             torch.testing.assert_close(o, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("tile,k,steps", [(None, None, 11), (None, None, 121), ((16, 20), 4, 7),
+                                          ((23, 11), 3, 10), ((5, 64), 6, 13), ((64, 64), 4, 6)])
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+@pytest.mark.parametrize("dyn_type", ["bbm", "evp", "mevp"])
+def test_kernel_matches_blocked_reference_on_a_ragged_grid(cuda, dyn_type, dtype_name, tile, k, steps):
+    """70 x 45 cells, tiles that do not divide it and step counts that are no
+    multiple of k (a remainder launch): the kernel against the same plan in
+    plain PyTorch and against the plain loop."""
+    sim, consts, carry = _setup(dyn_type, dtype_name, **{"grid.nx": 45, "grid.ny": 70,
+                                                          "ideal_simul.constant_wind_v": -6.0})
+    plan = momentum_cuda.launch_plan(70, 45, steps, sim.dtype, dyn_type, tile=tile, k=k)
+    assert steps % plan.k and plan.launches[-1] == steps % plan.k
+    launches = momentum_cuda.launches
+    out = _loop(momentum_cuda._substep_loop_cuda, sim, consts, carry, steps, plan=plan)
+    assert momentum_cuda.launches == launches + len(plan.launches) == launches + -(-steps // plan.k)
+    blocked = _loop(momentum_cuda.substep_loop_blocked_reference, sim, consts, carry, steps, plan=plan)
+    ref = _loop(momentum_cuda.substep_loop_reference, sim, consts, carry, steps)
+    torch.cuda.synchronize()
+    for o, b, r in zip(out, blocked, ref):
+        assert bool(torch.isfinite(o).all())
+        torch.testing.assert_close(b, r, rtol=0, atol=0)  # the schedule itself is exact
+        if dyn_type != "mevp":
+            torch.testing.assert_close(o, b, rtol=0, atol=0)
+        elif steps <= 40:
+            torch.testing.assert_close(o, b, rtol=1e-6, atol=1e-6 * float(b.abs().max()))
+    if dyn_type == "mevp" and steps > 40:
+        # EVP at near-zero strain amplifies the reciprocal's ulp over 121
+        # substeps: hold the mean speed (rtol 1e-3)
+        torch.testing.assert_close(torch.hypot(out[0], out[1]).mean(), torch.hypot(ref[0], ref[1]).mean(),
+                                   rtol=1e-3, atol=1e-12)
+
+
+def test_kernel_rejects_a_plan_for_another_loop(cuda):
+    sim, consts, carry = _setup("bbm", "float32")
+    with pytest.raises(ValueError, match="another loop"):
+        _loop(momentum_cuda._substep_loop_cuda, sim, consts, carry, 8,
+              plan=momentum_cuda.launch_plan(33, 33, 9, torch.float32, "bbm"))
+    with pytest.raises(ValueError, match="another loop"):
+        _loop(momentum_cuda._substep_loop_cuda, sim, consts, carry, 8,
+              plan=momentum_cuda.launch_plan(33, 33, 8, torch.float64, "bbm"))
 
 
 def test_kernel_rejects_half_and_strided_planes(cuda):
@@ -100,7 +153,7 @@ def test_simulator_step_goes_through_the_kernel(cuda):
     sim = Simulator(Config(overrides=SQUARE), device="cuda")
     launches = momentum_cuda.launches
     sim.step_chunk(2)
-    assert momentum_cuda.launches == launches + 2 * 2 * sim.dyn.substeps
+    assert momentum_cuda.launches == launches + 2 * _launches(sim, sim.dyn.substeps)
     assert bool(torch.isfinite(sim.state.vt_u).all())
 
 
@@ -131,7 +184,7 @@ def test_thermo_on_run_stays_finite(cuda):
     sim = Simulator(Config(overrides=THERMO), device="cuda")
     launches = momentum_cuda.launches
     sim.step_chunk(3)
-    assert momentum_cuda.launches == launches + 2 * 3 * sim.dyn.substeps
+    assert momentum_cuda.launches == launches + 3 * _launches(sim, sim.dyn.substeps)
     for name in ("conc", "thick", "tice", "sst", "sss", "conc_young", "h_young", "vt_u"):
         assert bool(torch.isfinite(getattr(sim.state, name)).all()), name
     assert float(sim.state.conc.max()) > 0.5 and "qa" in sim.diag
@@ -159,7 +212,7 @@ def test_kernel_matches_plain_with_grounding_ssh_and_currents(cuda, dtype_name):
     assert float(consts.grad_ssh_u.abs().max()) > 0.0 and float(consts.ocean_u.std()) > 0.0
     launches = momentum_cuda.launches
     out = _loop(momentum_cuda.substep_loop, sim, consts, carry, 40)
-    assert momentum_cuda.launches == launches + 80
+    assert momentum_cuda.launches == launches + _launches(sim, 40)
     ref = _loop(momentum_cuda.substep_loop_reference, sim, consts, carry, 40)
     for o, r in zip(out, ref):
         torch.testing.assert_close(o, r, rtol=0, atol=0)

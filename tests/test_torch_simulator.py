@@ -648,7 +648,7 @@ SLICE_MODULES = [
     "nextsim_tpu_torch.__main__", "nextsim_tpu_torch.forcing.datasets",
     "nextsim_tpu_torch.forcing.bathymetry", "nextsim_tpu_torch.model.init_ice_datasets",
     "nextsim_tpu_torch.ops.nesting", "nextsim_tpu_torch.model.nesting_source",
-    "nextsim_tpu_torch.tools.synthetic_etopo",
+    "nextsim_tpu_torch.tools.synthetic_etopo", "nextsim_tpu_torch.tools.tune_substep",
 ]
 
 

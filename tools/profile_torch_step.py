@@ -61,7 +61,8 @@ def phases(sim, n=5):
         mark("momentum setup")
         momentum_cuda.substep_loop(consts, carry, sim.dyn.substeps, sim.dt / sim.dyn.substeps,
                                    sim.dt, sim.grid.dx, sim.dyn.dynamics_type, sim.dyn)
-        mark(f"substep loop ({sim.dyn.substeps} substeps)")
+        mark(f"substep loop ({sim.dyn.substeps} substeps, "
+             f"{momentum_cuda.launches_for(sim.dyn.substeps, *sim.grid.shape)} launches)")
         state, _ = momentum.explicit_solve(state, forcing, ga, sim.dt, sim.dyn)
         mark("whole explicit_solve")
         state, _ = transport.transport_and_ridge(state, ga, sim.dt, sim.transport_params)
