@@ -88,17 +88,36 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    (held against means taken step by step on the host, remapped and
    rotated), and the received wlbk breaks floes;
 18. ``python -m nextsim_tpu_torch.wim --device cuda`` with its defaults, as a
-   subprocess, and its summary line.
+   subprocess, and its summary line;
+19. the ensemble at full width: ``BatchedEnsemble`` on phase 11's
+   configuration and files, 4 members (the control and 3 perturbed) for 12
+   steps; every member finite with zero violations, 4 x the plan's launches
+   a step, spread in conc, sst and vt_u, member 0 on the provider's forcing,
+   a statistics moorings record, and a checkpoint at step 6 read back into
+   the same ensemble whose second pass equals the first bitwise; ms/step of
+   the ensemble and a member beside phase 11's, and one step under
+   torch.profiler (launches, device busy, idle share);
+20. at 464^2 thermo on, 3 members for 3 steps: batched member 0 equals a
+   Simulator and member 2 a Simulator with ensemble_member=2, bitwise;
+21. ``python -m nextsim_tpu_torch.ensemble.run_ensemble --device cuda`` with
+   a control and 2 members on configs/toy.cfg for 0.05 days, as a
+   subprocess: mem_0..mem_2 finite, the members different;
+22. ``run_comparison`` on three synthetic reference-format snapshots with
+   configs/toy.cfg in float64, on the card and on the CPU: every metric of
+   the reports within 1e-9 relative; ``tools.deformation_stats`` on phase
+   19's ensemble-mean velocity.
 
 The line before the last is the JSON record of the kernel (its launches
-summed over the paths of phases 5, 8, 11, 14 and 17, each counted from zero,
-none of them zero); the last line is
+summed over the paths of phases 5, 8, 11, 14, 17, 19 and 22, each counted
+from zero, none of them zero); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -897,7 +916,7 @@ def nested_card_vs_cpu(tmp: Path, smi: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# The wave path: FSD + WIM + coupler (phases 14-19)
+# The wave path: FSD + WIM + coupler (phases 14-18)
 # ---------------------------------------------------------------------------
 
 WAVE_STEPS = 41  # 2 x nextwim.couplingfreq + 1: exchanges at steps 0, 20 and 40
@@ -1079,18 +1098,20 @@ def cli_keep(args):
     return kept["sim"], momentum_cuda.launches, time.perf_counter() - kept["t_run"], exchanges, calls
 
 
-def _finite_state(sim, what):
+def _finite_state(state, what):
+    """Raises when a field of ``state`` is not finite or checkFieldsFast
+    flags it."""
     import dataclasses
 
     import torch
 
     from nextsim_tpu_torch.model import checks
 
-    for f in dataclasses.fields(sim.state):
-        v = getattr(sim.state, f.name)
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
         if v is not None and not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{what}: {f.name} is not finite")
-    viol = checks.violations(sim.state).cpu().numpy()
+    viol = checks.violations(state).cpu().numpy()
     if viol.any():
         raise AssertionError(f"{what}: violations {checks.describe(viol)}")
 
@@ -1118,7 +1139,7 @@ def wave_cli_run(tmp: Path, out: Path, smi: str, dataset_ms: float):
         raise AssertionError(f"wave path: {launches} kernel launches, expected {expect}")
     if len(exchanges) != 3:
         raise AssertionError(f"wave path: {len(exchanges)} WIM exchanges, expected 3 (steps 0, 20, 40)")
-    _finite_state(sim, "wave path")
+    _finite_state(sim.state, "wave path")
     st = sim.state
     if tuple(sim.wim.sdf.shape) != (25, 16, 608, 608) or st.conc_fsd.shape[0] != 20:
         raise AssertionError(f"wave path: spectrum {tuple(sim.wim.sdf.shape)}, {st.conc_fsd.shape[0]} bins")
@@ -1424,7 +1445,7 @@ def coupled_run(tmp: Path, out: Path, smi: str):
     expect = momentum_cuda.launches_for(sim.dyn.substeps, *sim.grid.shape) * COUPLED_STEPS
     if sim.pcpt != COUPLED_STEPS or launches != expect:
         raise AssertionError(f"coupled run: {sim.pcpt} steps, {launches} kernel launches, expected {expect}")
-    _finite_state(sim, "coupled run")
+    _finite_state(sim.state, "coupled run")
     puts = sorted((out / "coupler").glob("cpl_out_*.nc"))
     if len(puts) != 2 or len(host["means"]) != 2:
         raise AssertionError(f"coupled run: {len(puts)} put files, {len(host['means'])} windows")
@@ -1504,6 +1525,291 @@ def wave_phases(tmp: Path, smi: str, dataset_ms: float, path_launches: dict) -> 
     del sim
     path_launches["coupled"] = coupled_run(tmp, tmp / "coupled_run", smi)
     return wave_err
+
+
+# ---------------------------------------------------------------------------
+# Ensembles and validation (phases 19-22)
+# ---------------------------------------------------------------------------
+
+ENSEMBLE_MEMBERS = 4  # the control and 3 perturbed members
+ENSEMBLE_STEPS = 12
+
+
+def ensemble_run(tmp: Path, smi: str, dataset_ms: float):
+    """Phase 19: ``BatchedEnsemble`` on configs/arctic_10km.cfg with ERA5 +
+    TOPAZ4 + ETOPO (the phase-11 files), 4 members for 12 steps, a checkpoint
+    at step 6 resumed into the same object; returns (the ensemble, kernel
+    launches of the 12 steps)."""
+    import dataclasses
+
+    import torch
+
+    from nextsim_tpu_torch import Config
+    from nextsim_tpu_torch.ensemble.batched import BatchedEnsemble
+    from nextsim_tpu_torch.ops import momentum_cuda
+    from scipy.io import netcdf_file
+
+    out = tmp / "ensemble_run"
+    overrides = dict(a.split("=", 1) for a in DATASET_ARGS)
+    overrides.update({"output.exporter_path": str(out), "moorings.output_timestep": 6,
+                      "moorings.output_time_step_units": "time_steps", "output.async_io": False})
+    cfg = Config.from_files(str(ROOT / "configs" / "arctic_10km.cfg"), overrides=overrides)
+    t0 = time.perf_counter()
+    ens = BatchedEnsemble(cfg, ENSEMBLE_MEMBERS, device="cuda")
+    init_s = time.perf_counter() - t0
+    half = ENSEMBLE_STEPS // 2
+
+    def steps(n):
+        ms = []
+        for _ in range(n):
+            a = time.perf_counter()
+            ens.step()
+            sync()
+            ms.append(1e3 * (time.perf_counter() - a))
+        return ms
+
+    momentum_cuda.launches = 0
+    step_ms = steps(half)
+    ens.write_restart("half")
+    step_ms += steps(ENSEMBLE_STEPS - half)
+    launches = momentum_cuda.launches
+    per_loop = momentum_cuda.launches_for(ens.sim.dyn.substeps, *ens.sim.grid.shape)
+    if launches != ENSEMBLE_MEMBERS * per_loop * ENSEMBLE_STEPS:
+        raise AssertionError(f"ensemble: {launches} kernel launches, expected "
+                             f"{ENSEMBLE_MEMBERS} x {per_loop} x {ENSEMBLE_STEPS}")
+    for k in range(ENSEMBLE_MEMBERS):
+        _finite_state(ens.member_state(k), f"ensemble member {k}")
+    spread = ens.spread(("conc", "sst", "vt_u"))
+    if min(spread.values()) <= 0.0:
+        raise AssertionError(f"ensemble: no spread {spread}")
+    moorings = sorted(out.glob("Moorings_*.nc"))
+    if not moorings:
+        raise AssertionError("ensemble: no statistics moorings file")
+    with netcdf_file(moorings[0], "r", mmap=False) as nc:
+        sic_std = np.asarray(nc.variables["sic_std"][:])
+        n_rec = sic_std.shape[0]
+        if n_rec != 2 or "siu_mean" not in nc.variables or not np.nanmax(sic_std) > 0.0:
+            raise AssertionError(f"ensemble moorings: {n_rec} records, variables {sorted(nc.variables)}")
+
+    # the checkpoint of step 6, read back into the same object: the second
+    # pass equals the first bitwise, the noise stream included
+    first = {f.name: getattr(ens.states, f.name).clone() for f in dataclasses.fields(ens.states)
+             if getattr(ens.states, f.name) is not None}
+    ran = ens._ran.clone()
+    ens.read_restart("half")
+    if ens.pcpt != half:
+        raise AssertionError(f"ensemble restart: pcpt {ens.pcpt}, not {half}")
+    steps(ENSEMBLE_STEPS - half)
+    differ = [k for k, v in first.items() if not torch.equal(v, getattr(ens.states, k))]
+    if differ or not torch.equal(ran, ens._ran):
+        raise AssertionError(f"ensemble restart: the resumed pass differs in {differ or 'the AR(1) carry'}")
+
+    # member 0 rides the provider's forcing; the others are perturbed
+    t = ens.current_time + ens.sim.dt / 86400.0
+    forcings = ens._member_forcings(t)
+    base = ens.sim.forcing_provider(t, ens.sim.time_init)
+    for f in dataclasses.fields(base):
+        a, b = getattr(forcings[0], f.name), getattr(base, f.name)
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a, b)):
+            raise AssertionError(f"ensemble: member 0's {f.name} is not the provider's")
+    dtair = [float((fk.tair - base.tair).abs().max()) for fk in forcings[1:]]
+    if min(dtair) <= 0.0:
+        raise AssertionError(f"ensemble: a perturbed member has the control's air temperature {dtair}")
+
+    wall, busy, n_launch = profiled(ens.step)
+    med = float(np.median(step_ms[1:]))
+    ny, nx = ens.sim.grid.shape
+    phase("ensemble", f"BatchedEnsemble on arctic_10km.cfg {ny}x{nx}, ERA5 + TOPAZ4 + ETOPO, thermo on, "
+          f"{ENSEMBLE_MEMBERS} members x {ENSEMBLE_STEPS} steps: init {init_s:.1f} s, first step {step_ms[0]:.0f} ms "
+          f"(the readers' first call), then {med:.2f} ms/step ({med / ENSEMBLE_MEMBERS:.2f} ms/step a member; "
+          f"min {min(step_ms[1:]):.2f}, max {max(step_ms[1:]):.2f}) against phase 11's {dataset_ms:.2f} ms/step "
+          f"of one Simulator; {launches} kernel launches ({per_loop} a member and step); zero violations; "
+          f"spread {json.dumps({k: round(v, 6) for k, v in spread.items()})}; perturbed members' max |dtair| "
+          f"{', '.join(f'{d:.3f}' for d in dtair)} K; {n_rec} statistics records; restart at step {half} resumed "
+          f"bitwise; one step under torch.profiler: {n_launch} launches, device busy {busy:.2f} ms, idle share "
+          f"{1.0 - busy / med:.3f} of the unprofiled step ({1e3 * wall:.1f} ms profiled wall); {smi}")
+    return ens, launches
+
+
+def ensemble_members_vs_simulators(smi: str) -> None:
+    """Phase 20: at 464^2 thermo on, batched member 0 equals a Simulator
+    and member 2 a Simulator with ensemble_member=2, bitwise, after 3
+    steps."""
+    import dataclasses
+
+    import torch
+
+    from nextsim_tpu_torch import Config, Simulator
+    from nextsim_tpu_torch.ensemble.batched import BatchedEnsemble
+
+    cfg = lambda m: Config(overrides=dict(BENCH_THERMO, **{"statevector.ensemble_member": m}))  # noqa: E731
+    ens = BatchedEnsemble(cfg(0), 3, device="cuda")
+    ens.run(3)
+    report = []
+    for m in (0, 2):
+        sim = Simulator(cfg(m), device="cuda")
+        for _ in range(3):
+            sim.step()
+        member = ens.member_state(m)
+        differ = {f.name: float((getattr(sim.state, f.name) - getattr(member, f.name)).abs().max())
+                  for f in dataclasses.fields(sim.state) if getattr(sim.state, f.name) is not None
+                  and not torch.equal(getattr(sim.state, f.name), getattr(member, f.name))}
+        if differ:
+            raise AssertionError(f"batched member {m} vs Simulator(member={m}): max |diff| {differ}")
+        report.append(m)
+    d12 = float((ens.member_state(1).sst - ens.member_state(2).sst).abs().max())
+    ny, nx = ens.sim.grid.shape
+    phase("ensemble", f"{ny}x{nx} thermo on, 3 members x 3 steps: members {report} equal Simulator(member=m) bitwise "
+          f"in every field; "
+          f"members 1 and 2 differ in sst by {d12:.3e} C; {smi}")
+
+
+def ensemble_driver(tmp: Path, smi: str) -> None:
+    """Phase 21: ``python -m nextsim_tpu_torch.ensemble.run_ensemble`` with a
+    control and 2 members on configs/toy.cfg for 0.05 days, as a subprocess."""
+    out = tmp / "ensemble_driver"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "nextsim_tpu_torch.ensemble.run_ensemble", "--device", "cuda",
+                        "--control", "--num-members", "2", "--config-files", "configs/toy.cfg",
+                        "simul.duration=0.05", f"output.exporter_path={out}", "restart.write_final_restart=true"],
+                       cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"ensemble driver exited {r.returncode}: {r.stderr[-3000:]}")
+    finals = {}
+    for m in range(3):
+        path = out / f"mem_{m}" / "restart" / "restart_final.npz"
+        if not path.exists():
+            raise AssertionError(f"ensemble driver: no {path.relative_to(out)}")
+        _all_finite(path, f"ensemble driver member {m}")
+        with np.load(path) as z:
+            finals[m] = {k: z[k] for k in ("vt_u", "conc")}
+            meta = json.loads(str(z["__meta__"]))
+    d01 = float(np.abs(finals[1]["vt_u"] - finals[0]["vt_u"]).max())
+    if d01 <= 0.0 or np.array_equal(finals[1]["vt_u"], finals[2]["vt_u"]):
+        raise AssertionError(f"ensemble driver: members do not differ (|d vt_u| 0-1 {d01})")
+    phase("ensemble", f"run_ensemble --device cuda --control --num-members 2 on toy.cfg 128^2, "
+          f"{meta['pcpt']} steps a member, in {time.perf_counter() - t0:.1f} s (process included): mem_0..mem_2 "
+          f"finite, member 1 vs 0 max |d vt_u| {d01:.3e} m/s; {smi}")
+
+
+def lattice_triangles(ny: int, nx: int):
+    """Two triangles a cell on a (ny+1) x (nx+1) node lattice, cell c's at
+    2c and 2c+1 (P0 triangle fields align with cells, P1 nodes with nodes)."""
+    jj, ii = np.meshgrid(np.arange(ny), np.arange(nx), indexing="ij")
+    n00 = (jj * (nx + 1) + ii).ravel()
+    tris = np.empty((2 * n00.size, 3), dtype=np.int64)
+    tris[0::2] = np.column_stack([n00, n00 + 1, n00 + nx + 2])
+    tris[1::2] = np.column_stack([n00, n00 + nx + 2, n00 + nx + 1])
+    return tris
+
+
+def write_reference_snapshots(d: Path, grid, t0: float, dt_days: float, n: int = 3) -> None:
+    """``n`` synthetic reference-format snapshot pairs ({mesh,field}_<k>, the
+    reference Exporter's layout) of a drifting ice field, one step apart,
+    written by the port's ref_binary."""
+    from nextsim_tpu_torch.output import ref_binary
+
+    d.mkdir(parents=True, exist_ok=True)
+    cx, cy = grid.cell_xy()
+    npx, npy = grid.node_xy()
+    ids = np.arange(1, npx.size + 1, dtype=np.int32)
+    tris = lattice_triangles(*grid.shape)
+    p0 = lambda a: np.repeat(np.asarray(a, np.float64).ravel(), 2)  # noqa: E731
+    for k in range(1, n + 1):
+        ref_binary.write_file(str(d / f"mesh_{k}"), [
+            ("Elements", "int", ids[tris].ravel().astype(np.int32)), ("id", "int", ids),
+            ("Nodes_x", "double", npx.ravel()), ("Nodes_y", "double", npy.ravel())])
+        conc = np.clip(0.9 + 0.1 * np.sin(cx / 60e3 + 0.1 * k) * np.cos(cy / 45e3), 0.0, 1.0)
+        u = 0.1 + 0.02 * np.sin(npy / 30e3 + k)
+        v = -0.05 * np.cos(npx / 40e3)
+        ref_binary.write_file(str(d / f"field_{k}"), [
+            ("Time", "double", np.array([t0 + k * dt_days])),
+            ("M_VT", "double", np.concatenate([u.ravel(), v.ravel()])),
+            ("Concentration", "double", p0(conc)), ("Thickness", "double", p0(1.0 + 0.5 * conc)),
+            ("Damage", "double", p0(0.05 * k * (conc > 0.95))), ("Snow", "double", p0(0.1 * conc))])
+
+
+def _worst_report_diff(a, b, path="report") -> float:
+    """The largest relative difference between two nested reports (same keys)."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{path}: keys {sorted(a)} vs {sorted(b)}")
+        return max([_worst_report_diff(a[k], b[k], f"{path}.{k}") for k in a] or [0.0])
+    if isinstance(a, str):
+        if a != b:
+            raise AssertionError(f"{path}: {a} vs {b}")
+        return 0.0
+    return abs(a - b) / max(abs(a), abs(b), 1e-300)
+
+
+def validation_run(tmp: Path, smi: str, ens) -> int:
+    """Phase 22: ``run_comparison`` on three synthetic reference-format
+    snapshots with configs/toy.cfg, float64 on the card and on the CPU
+    (every metric within 1e-9 relative); ``tools.deformation_stats`` on phase
+    19's ensemble-mean velocity. Returns the kernel launches of the card run."""
+    import torch
+
+    from nextsim_tpu_torch import Config
+    from nextsim_tpu_torch.grid.grid import Grid
+    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.tools import deformation_stats
+    from nextsim_tpu_torch.utils import dates
+    from nextsim_tpu_torch.validation.ref_compare import build_matching_grid, load_snapshot, run_comparison
+
+    toy = str(ROOT / "configs" / "toy.cfg")
+    cfg = Config.from_files(toy)
+    grid = Grid.square(nx=cfg["grid.nx"], ny=cfg["grid.ny"], dx=cfg["grid.resolution"], x0=-640e3, y0=-640e3)
+    ref_dir = tmp / "reference"
+    write_reference_snapshots(ref_dir, grid, dates.string_to_datenum(cfg["simul.time_init"]),
+                              cfg["simul.timestep"] / 86400.0)
+    ov = {"tpu.dtype": "float64", "output.exporter_path": str(tmp / "validation")}
+    momentum_cuda.launches = 0
+    t0 = time.perf_counter()
+    card = run_comparison(str(ref_dir), [toy], overrides=dict(ov), verbose=False, device="cuda")
+    sync()
+    t_card = time.perf_counter() - t0
+    launches = momentum_cuda.launches
+    t0 = time.perf_counter()
+    cpu = run_comparison(str(ref_dir), [toy], overrides=dict(ov), verbose=False, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    matched = build_matching_grid(load_snapshot(str(ref_dir), "1"))
+    per_loop = len(momentum_cuda.launch_plan(matched.ny, matched.nx, cfg["dynamics.substeps"],
+                                             torch.float64, "bbm").launches)
+    if len(card) != 3 or launches != 3 * per_loop:
+        raise AssertionError(f"validation: {len(card)} snapshots, {launches} kernel launches (3 x {per_loop} expected)")
+    worst = max(_worst_report_diff(a[2], b[2]) for a, b in zip(cpu, card))
+    if worst > 1e-9:
+        raise AssertionError(f"validation: card vs CPU reports differ by {worst:.3e} relative")
+    last = card[-1][2]
+
+    mean = ens.mean_state()
+    path = tmp / "ensemble_mean.npz"
+    np.savez(path, vt_u=mean.vt_u.cpu().numpy(), vt_v=mean.vt_v.cpu().numpy(), conc=mean.conc.cpu().numpy())
+    result = deformation_stats.main([str(path), str(ens.sim.grid.dx)])
+    total = result["total"]
+    if total.get("n", 0) < 100 or not all(np.isfinite(v) for v in total.values()):
+        raise AssertionError(f"deformation_stats on the ensemble mean: {total}")
+    phase("validation", f"run_comparison on 3 synthetic reference snapshots (toy.cfg on the snapshots' "
+          f"{matched.ny}x{matched.nx} grid, float64): card {t_card:.1f} s, {launches} kernel launches; CPU {t_cpu:.1f} s; every metric of the "
+          f"3 reports within {worst:.1e} relative (limit 1e-9); last snapshot: speed rmse "
+          f"{last['speed']['rmse']:.4f} m/s, conc rmse {last['Concentration']['rmse']:.4f}, tier {last['_tier']}; "
+          f"deformation_stats on phase 19's ensemble-mean velocity: {total['n']} cells, p50 "
+          f"{total.get('p50_per_day', float('nan')):.4f}/day, p99 {total.get('p99_per_day', float('nan')):.4f}/day; {smi}")
+    return launches
+
+
+@contextlib.contextmanager
+def data_dir(path: Path):
+    """NEXTSIM_DATA_DIR set to ``path`` inside the block."""
+    old = os.environ.get("NEXTSIM_DATA_DIR")
+    os.environ["NEXTSIM_DATA_DIR"] = str(path)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("NEXTSIM_DATA_DIR", None)
+        else:
+            os.environ["NEXTSIM_DATA_DIR"] = old
 
 
 def make_sim(overrides, dtype_name="float32"):
@@ -1702,7 +2008,6 @@ def main() -> int:
     cli_run_and_resume(smi)
 
     # 11-13. the dataset path, its kernel state and timings, nesting
-    import os
     import tempfile
 
     scratch = ROOT / "nextsim_tpu_torch" / "build"  # git-ignored
@@ -1714,21 +2019,22 @@ def main() -> int:
         write_waves(tmp / "data")
         phase("datasets", f"synthetic inputs written in {time.perf_counter() - t0:.1f} s: {what}, "
               "ERA-Interim waves 4 records of 181x360 x 3 variables")
-        old_dir = os.environ.get("NEXTSIM_DATA_DIR")
-        os.environ["NEXTSIM_DATA_DIR"] = str(tmp / "data")
-        try:
+        with data_dir(tmp / "data"):
             sim, path_launches["datasets"], dataset_ms = dataset_cli_run(tmp / "data", tmp / "run", smi)
             dataset_err = dataset_kernel_and_forcing(sim, smi)
             dataset_timings(sim, smi)
             del sim
             wave_err = wave_phases(tmp, smi, dataset_ms, path_launches)
-        finally:
-            if old_dir is None:
-                os.environ.pop("NEXTSIM_DATA_DIR", None)
-            else:
-                os.environ["NEXTSIM_DATA_DIR"] = old_dir
         nested_card_vs_cpu(tmp, smi)
         standalone_wim(tmp, smi)
+
+        # 19-22. ensembles on the phase-11 files, the driver, validation
+        with data_dir(tmp / "data"):
+            ens, path_launches["ensemble"] = ensemble_run(tmp, smi, dataset_ms)
+        ensemble_members_vs_simulators(smi)
+        ensemble_driver(tmp, smi)
+        path_launches["validation"] = validation_run(tmp, smi, ens)
+        del ens
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     if min(path_launches.values()) <= 0:
         raise AssertionError(f"a path ran without the kernel: {path_launches}")

@@ -22,7 +22,7 @@ or chunk, and ``run`` clamps the chunk length so that it divides each exact
 output cadence, as the JAX package does.
 
 The subsystems the JAX Simulator wires up that the port does not have yet
-(ensembles, a device mesh, a bfloat16 state) raise ``NotImplementedError``
+(a device mesh, a bfloat16 state) raise ``NotImplementedError``
 naming the ROADMAP item that ports them; none is skipped silently. The
 options that tune JAX's compilation and TPU kernels
 (``tpu.donate_state``, ``tpu.compilation_cache_dir``, ``tpu.substep_kernel``,
@@ -61,7 +61,6 @@ def _unported(cfg) -> Optional[str]:
     """The first configured subsystem the port does not have yet, as
     'option (ROADMAP item)', or None."""
     rules = [
-        (cfg["statevector.ensemble_member"] > 0, "statevector.ensemble_member > 0 (ROADMAP A.11, ensembles)"),
         (str(cfg["tpu.mesh_shape"]).lower().strip() not in ("", "1x1")
          or cfg["tpu.partition_mode"] != "gspmd" or cfg["tpu.halo_depth"] != 1,
          "a device mesh (ROADMAP A.14, multi-device)"),
@@ -74,7 +73,7 @@ def _unported(cfg) -> Optional[str]:
 
 
 class Simulator:
-    def __init__(self, cfg: Config, device="cuda"):
+    def __init__(self, cfg: Config, grid: Optional[Grid] = None, device="cuda"):
         what = _unported(cfg)
         if what is not None:
             raise NotImplementedError(f"the PyTorch port does not have {what} yet")
@@ -83,7 +82,7 @@ class Simulator:
         self.timer = Timer()
         self.device = torch.device(device)
         self.dtype = _DTYPES[cfg["tpu.dtype"]]
-        self.grid = Grid.from_config(cfg)
+        self.grid = grid if grid is not None else Grid.from_config(cfg)
 
         # --- time bookkeeping (host) -------------------------------------
         self.dt = float(cfg["simul.timestep"])  # seconds
@@ -129,6 +128,14 @@ class Simulator:
                 conc_mech_fsd=cf.clone() if self.fsd_params.distinguish_mech_fsd else None,
             )
         self.forcing_provider = make_provider(cfg, self.grid, self.dtype, device=self.device)
+        # ensemble member > 0: perturbed forcing (reference: #ifdef ENSEMBLE,
+        # externaldata.cpp:244-278; modules/enkf/perturbation). The AR(1)
+        # chain advances once a provider call, so once a step on both paths
+        if cfg["statevector.ensemble_member"] > 0:
+            from nextsim_tpu_torch.ensemble.perturbation import EnsembleForcing
+
+            self.forcing_provider = EnsembleForcing(self.forcing_provider, self.grid, cfg,
+                                                    dtype=self.dtype, device=self.device)
 
         # nesting sponge (reference: forcingNesting fe.cpp:11060-11130):
         # (params, per-cell weight on the device, outer-run source)
@@ -300,14 +307,22 @@ class Simulator:
         diag["dmax"], diag["dmean"] = fsd_ops.dmax_dmean(cf, fp, fb)
         return state.replace(conc_fsd=cf, conc_mech_fsd=mech, damage=damage)
 
-    def _advance(self, wim_gate: bool = True) -> None:
+    def _advance(self, wim_gate: bool = True, chunked: bool = False) -> None:
         """One step: forcing, the coupler's received fields, the outer run's
         fields, the WIM exchange when ``wim_gate`` is set and one is due, and
         the time flags at the step's time (host, timed as "forcing"), the
         device step, the step counter; violations and the coupler's sums
-        accumulate on the device."""
+        accumulate on the device.
+
+        The overlays follow the JAX package path by path: ``step`` applies
+        the WIM's fields last, so they win over a received ``wlbk`` or wave
+        stress; ``step_chunk`` (``chunked``) runs the WIM exchange on the
+        provider's forcing and applies its fields first, so the received and
+        nested fields win."""
         self.timer.tick("forcing")
         forcing = self._next_forcing()
+        if chunked and self.wim is not None:
+            forcing = self._wim_forcing(forcing, wim_gate)
         if self.coupler is not None:
             forcing = self.coupler.apply_received(forcing)
         nest = None
@@ -319,12 +334,8 @@ class Simulator:
                 # fe.cpp:11133-11143)
                 forcing = forcing.replace(ocean_temp=outer["sst"], ocean_salt=outer["sss"])
             nest = self._nest_fields(outer)
-        if self.wim is not None:
-            if wim_gate and self._wim_due():
-                self.timer.tick("wim")
-                self._wim_exchange(forcing)
-                self.timer.tock("wim")
-            forcing = self._apply_wim_forcing(forcing)
+        if not chunked and self.wim is not None:
+            forcing = self._wim_forcing(forcing, wim_gate)
         tinfo = self.time_info()
         self.timer.tock("forcing")
         self.timer.tick("device_step")
@@ -348,6 +359,15 @@ class Simulator:
             prev = self._pending_viol
             self._pending_viol = viol if prev is None else torch.maximum(prev, viol)
         self.timer.tock("device_step")
+
+    def _wim_forcing(self, forcing, wim_gate: bool):
+        """The WIM exchange when ``wim_gate`` is set and one is due, then its
+        fields overlaid on ``forcing``."""
+        if wim_gate and self._wim_due():
+            self.timer.tick("wim")
+            self._wim_exchange(forcing)
+            self.timer.tock("wim")
+        return self._apply_wim_forcing(forcing)
 
     def _wim_due(self) -> bool:
         """WIM coupling cadence, shared by the per-step and chunked paths
@@ -500,11 +520,12 @@ class Simulator:
         violation flags back once at the end of the chunk. The WIM exchange
         and the coupler's put/get happen at chunk boundaries only (``run``
         clamps k to divide their cadences): the WIM is consulted before the
-        chunk's first step, the coupler after its last."""
+        chunk's first step, the coupler after its last, and the coupler's
+        received fields win over the WIM's (see ``_advance``)."""
         k = self._chunk_k if k is None else k
         self.timer.tick("step")
         for i in range(k):
-            self._advance(wim_gate=i == 0)
+            self._advance(wim_gate=i == 0, chunked=True)
             if self.moorings is not None:
                 self.timer.tick("device_step")
                 self.moorings.update_means(self.state, self.diag, self.last_forcing)

@@ -207,6 +207,33 @@ def test_step_chunk_equals_steps():
         np.testing.assert_array_equal(state_to_numpy(b.state)[f], v, err_msg=f)
 
 
+def test_simulator_takes_a_grid():
+    """``Simulator(cfg, grid=...)`` uses the given grid, not the config's:
+    a 24 x 20 square placed 500 km west and 300 km north of the config's 32^2
+    one, with Coriolis on (the latitude moves with the grid). Both packages
+    step 2 steps on it in float64."""
+    over = dict(SLICES["toy_square32"], **{"tpu.dtype": "float64", "dynamics.use_coriolis": True,
+                                           "dynamics.substeps": 60})
+    kw = dict(nx=24, ny=20, dx=10e3, x0=-500e3, y0=300e3)
+    with jax.enable_x64(True):
+        jsim = JSimulator(JConfig(overrides=over), grid=JGrid.square(**kw))
+        psim = PSimulator(PConfig(overrides=over), grid=PGrid.square(**kw), device="cpu")
+        for a, b in zip(psim.grid.cell_xy(), jsim.grid.cell_xy()):
+            np.testing.assert_array_equal(a, b)
+        assert psim.grid.shape == (20, 24) and psim.state.conc.shape == (20, 24)
+        psim.state = state_from_numpy(jax_to_numpy(jsim.state), device="cpu")
+        for _ in range(2):
+            jsim.step()
+            psim.step()
+        ref, got = jax_to_numpy(jsim.state), state_to_numpy(psim.state)
+    for f, r in ref.items():
+        np.testing.assert_allclose(got[f], r, rtol=0, atol=1e-9 * max(np.abs(r).max(), 1e-300), err_msg=f)
+    # the config's own grid would have given another latitude, so other dynamics
+    own = PSimulator(PConfig(overrides=dict(over, **{"grid.nx": 24, "grid.ny": 20})), device="cpu")
+    own.state = state_from_numpy(ref, device="cpu")
+    assert not np.array_equal(own.grid_arrays["node_lat"].numpy(), psim.grid_arrays["node_lat"].numpy())
+
+
 def test_violation_flush_raises_with_messages(tmp_path):
     sim = PSimulator(PConfig(overrides=dict(SLICES["toy_square32"], **{
         "dynamics.substeps": 10, "output.exporter_path": str(tmp_path)})), device="cpu")
@@ -432,7 +459,6 @@ def test_constant_forcing_matches_jax():
 # ---------------------------------------------------------------------------
 
 UNPORTED = {
-    "ensemble": {"statevector.ensemble_member": 1},
     "mesh": {"tpu.mesh_shape": "2x4"},
     "shard_map": {"tpu.partition_mode": "shard_map"},
     "bfloat16": {"tpu.dtype": "bfloat16"},
@@ -471,6 +497,7 @@ PORTED = {
             "wimsetup.nwavedirn": 4},
     "coupler": {"setup.ocean-type": "coupled", "coupler.timestep": 400},
     "coupler_waves": {"coupler.with_waves": True, "coupler.timestep": 400},
+    "ensemble": {"statevector.ensemble_member": 1},
 }
 DATASET_OPTIONS = ("era5", "topaz4", "arctic_etopo", "nesting", "assimilation")
 
@@ -524,6 +551,9 @@ def test_formerly_unported_options_run(name, tmp_path, monkeypatch):
         assert "dmax" in sim.diag
     if name == "wim":
         assert float(sim.wim_diag["hs"].max()) > 0.0 and sim.last_forcing.tau_wi_u is not None
+    if name == "ensemble":  # the perturbed member's forcing is not the provider's
+        base = sim.forcing_provider.provider(sim.current_time, sim.time_init)
+        assert not torch.equal(lf.tair, base.tair) and not torch.equal(lf.wind_u, base.wind_u)
     if name in ("coupler", "coupler_waves"):
         assert sorted(p.name for p in (tmp_path / "coupler").glob("cpl_out_*.nc")) == [
             "cpl_out_20151016T000640Z.nc", "cpl_out_20151016T001320Z.nc"]
@@ -663,6 +693,11 @@ SLICE_MODULES = [
     "nextsim_tpu_torch.ops.fsd", "nextsim_tpu_torch.wim.rtparam", "nextsim_tpu_torch.wim.wim",
     "nextsim_tpu_torch.wim.regrid", "nextsim_tpu_torch.wim.__main__", "nextsim_tpu_torch.wim",
     "nextsim_tpu_torch.coupling.exchange", "nextsim_tpu_torch.coupling",
+    "nextsim_tpu_torch.ensemble", "nextsim_tpu_torch.ensemble.perturbation",
+    "nextsim_tpu_torch.ensemble.batched", "nextsim_tpu_torch.ensemble.run_ensemble",
+    "nextsim_tpu_torch.validation", "nextsim_tpu_torch.validation.deformation",
+    "nextsim_tpu_torch.validation.ref_compare", "nextsim_tpu_torch.tools.deformation_stats",
+    "nextsim_tpu_torch.tools.plot_fields", "nextsim_tpu_torch.tools.nan_bisect",
 ]
 
 

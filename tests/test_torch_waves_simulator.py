@@ -275,22 +275,28 @@ def test_wim_on_its_own_grid_matches_jax(tmp_path):
     assert int(broken.sum()) > 5 and float((psim.state.damage[broken] > 0.9).double().mean()) > 0.9
 
 
+def write_cpl_in(directory, ny, nx, rng):
+    """A prescribed cpl_in.nc under ``directory``/coupler: wlbk broken (90-150
+    m) on the western 14 columns, the wave stress random; its fields."""
+    recv = {"wlbk": np.where(np.arange(nx)[None, :] < 14, 90.0 + 60.0 * rng.uniform(0, 1, (ny, nx)), 500.0).astype(np.float32),
+            "tauwix": (0.02 * rng.standard_normal((ny, nx))).astype(np.float32),
+            "tauwiy": (0.02 * rng.standard_normal((ny, nx))).astype(np.float32)}
+    os.makedirs(directory / "coupler")
+    with netcdf_file(str(directory / "coupler" / "cpl_in.nc"), "w", version=2) as nc:
+        nc.createDimension("y", ny)
+        nc.createDimension("x", nx)
+        for k, v in recv.items():
+            nc.createVariable(k, "f4", ("y", "x"))[:] = v
+    return recv
+
+
 def test_coupled_run_with_received_wlbk_matches_jax(tmp_path):
     """coupler.with_waves, no WIM: the prescribed cpl_in.nc carries wlbk and
     the wave stress; the put files are equal and the received wlbk breaks
     floes from the step after the first window on."""
-    rng = np.random.default_rng(0)
     ny, nx = 14, 24
-    recv = {"wlbk": np.where(np.arange(nx)[None, :] < 14, 90.0 + 60.0 * rng.uniform(0, 1, (ny, nx)), 500.0).astype(np.float32),
-            "tauwix": (0.02 * rng.standard_normal((ny, nx))).astype(np.float32),
-            "tauwiy": (0.02 * rng.standard_normal((ny, nx))).astype(np.float32)}
     for d in ("j", "p"):
-        os.makedirs(tmp_path / d / "coupler")
-        with netcdf_file(str(tmp_path / d / "coupler" / "cpl_in.nc"), "w", version=2) as nc:
-            nc.createDimension("y", ny)
-            nc.createDimension("x", nx)
-            for k, v in recv.items():
-                nc.createVariable(k, "f4", ("y", "x"))[:] = v
+        recv = write_cpl_in(tmp_path / d, ny, nx, np.random.default_rng(0))
     # per step (one JAX compile); the chunk's sums are test_torch_coupling's
     over = {"nextwim.use_wim": False, "coupler.with_waves": True, "coupler.timestep": 1200}
     with jax.enable_x64(True):
@@ -315,6 +321,37 @@ def test_coupled_run_with_received_wlbk_matches_jax(tmp_path):
     hit = ice & (f.wlbk < 499.0)
     assert int(hit.sum()) > 10 and float(psim.state.conc_fsd[:-1].sum(0)[hit].min()) > 1e-3
     assert float(psim.state.conc_fsd[:-1].sum(0)[ice & ~hit].max()) < 1e-2  # what the advection carried there
+
+
+def test_overlay_order_of_each_path_matches_jax(tmp_path):
+    """The WIM and coupler.with_waves both on, a prescribed cpl_in.nc whose
+    wlbk and wave stress differ from the WIM's. The JAX ``step`` overlays the
+    WIM's fields after the received ones, its ``step_chunk`` before them:
+    the port's per-step run matches the JAX per-step run, its chunked run
+    (tpu.steps_per_call=2) the JAX chunked run, and the two paths part in
+    wlbk once the first coupler window has closed."""
+    runs = {}
+    with jax.enable_x64(True):
+        for k in (1, 2):
+            d = tmp_path / f"k{k}"
+            for side in ("j", "p"):
+                recv = write_cpl_in(d / side, 14, 24, np.random.default_rng(0))
+            # thermo off: the JAX chunk compiles in a third of the time
+            jsim, psim = pair(d, "float64", **{"coupler.with_waves": True, "coupler.timestep": 1200,
+                                               "tpu.steps_per_call": k, "thermo.use_thermo_forcing": False,
+                                               "thermo.melt_type": 2, "wave_coupling.welding_type": "none"})
+            jsim.run()
+            psim.run()
+            assert psim.pcpt == jsim.pcpt == 4 and psim._chunk_k == jsim._chunk_k == k
+            assert_tight(jsim, psim)
+            # (the JAX package keeps a received field in float32)
+            assert rel_err(np.asarray(jsim.last_forcing.wlbk, np.float64), psim.last_forcing.wlbk) <= 1e-9
+            runs[k] = psim
+    per_step, chunked = runs[1].last_forcing, runs[2].last_forcing
+    # per step the WIM's wlbk wins, in a chunk the received one
+    torch.testing.assert_close(per_step.wlbk, runs[1]._wim_wlbk, rtol=0, atol=0)
+    np.testing.assert_array_equal(chunked.wlbk.numpy(), recv["wlbk"].astype(np.float64))
+    assert not torch.equal(per_step.wlbk, chunked.wlbk)
 
 
 def test_wave_forcing_dataset_reaches_the_wim(tmp_path, monkeypatch):
