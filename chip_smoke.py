@@ -105,11 +105,18 @@ printing a line; any failure raises and ends the run with a non-zero exit:
 22. ``run_comparison`` on three synthetic reference-format snapshots with
    configs/toy.cfg in float64, on the card and on the CPU: every metric of
    the reports within 1e-9 relative; ``tools.deformation_stats`` on phase
-   19's ensemble-mean velocity.
+   19's ensemble-mean velocity;
+23. gradients: d(mean KE after one step)/d(wind_u) through ``raw_step_fn``
+   at 464^2 (BBM, 120 substeps, thermo off and on), through
+   ``momentum_cuda.SubstepLoop`` (the kernel forward, a checkpointed
+   recompute with the plain body backward) against straight autograd
+   through the plain loop on the card in float32 and float64, a
+   directional finite difference in float64 and a 3-step rollout; ms,
+   kernel launches, device busy and peak memory of each.
 
 The line before the last is the JSON record of the kernel (its launches
-summed over the paths of phases 5, 8, 11, 14, 17, 19 and 22, each counted
-from zero, none of them zero); the last line is
+summed over the paths of phases 5, 8, 11, 14, 17, 19, 22 and 23, each
+counted from zero, none of them zero); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1798,6 +1805,191 @@ def validation_run(tmp: Path, smi: str, ens) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Gradients (phase 23)
+# ---------------------------------------------------------------------------
+
+# the main path's configurations with the wind at full strength from the first
+# step (no spin-up ramp): a moving, stressed state after one forward step
+GRAD = dict(BENCH, **{"simul.spinup_duration": 0.0})
+GRAD_THERMO = dict(BENCH_THERMO, **{"simul.spinup_duration": 0.0})
+GRAD_ROLLOUT = 3  # steps of the rollout (a variational window)
+# SubstepLoop against straight autograd: float32 in the relative L2 norm (the
+# per-segment sums associate the planes' gradients otherwise; measured 1.9e-7
+# on an H100, and the kernel may part from the plain loop on the BBM failure
+# branch in a few cells over 120 float32 substeps, as phase 3's tier allows);
+# float64, where the kernel gives the plain loop's bits, in the max norm
+# (measured 1.6e-15)
+GRAD_REL_L2_F32 = 1e-4
+GRAD_REL_MAX_F64 = 1e-12
+# The float64 central difference at GRAD_FD_EPS m/s against the directional
+# derivative. A larger step straddles kinks of the BBM update (a cell that
+# starts or stops failing): measured on an H100, 2.0e-2 at 1e-3, 1.9e-4 at
+# 1e-4, 1.1e-6 at 1e-5; 2.6e-4 at 1e-3 on the undamaged state
+GRAD_FD_EPS = 1e-5
+GRAD_FD_RTOL_F64 = 1e-4
+
+
+@contextlib.contextmanager
+def straight_autograd():
+    """``substep_loop`` replaced by the plain loop inside the block: autograd
+    records every operation of every substep on the card (the yardstick of
+    SubstepLoop, no path of the port)."""
+    from nextsim_tpu_torch.ops import momentum_cuda
+
+    real = momentum_cuda.substep_loop
+    momentum_cuda.substep_loop = momentum_cuda.substep_loop_reference
+    try:
+        yield
+    finally:
+        momentum_cuda.substep_loop = real
+
+
+def ke_gradient(sim, steps=1):
+    """A function that returns d(mean KE after ``steps`` steps)/d(wind_u)
+    through ``sim.raw_step_fn`` from ``sim``'s state, and the wind."""
+    import torch
+
+    f = sim.forcing_provider(sim.current_time, sim.time_init)
+    ti = sim.time_info()
+
+    def loss(wind_u):
+        s = sim.state
+        for _ in range(steps):
+            s, _, _ = sim.raw_step_fn(s, f.replace(wind_u=wind_u), ti)
+        return (s.vt_u * s.vt_u + s.vt_v * s.vt_v).mean()
+
+    def grad():
+        w = f.wind_u.detach().clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(loss(w), w)
+        return g
+
+    return grad, loss, f.wind_u
+
+
+def measure_gradient(grad, warm=True, profile=False):
+    """(gradient, ms of a synchronized call (after a warm one with
+    ``warm``), kernel launches of that call, peak device memory above what
+    was allocated before it in GiB, and with ``profile`` (device busy ms,
+    launches of every kernel) of one more call under torch.profiler)."""
+    import torch
+
+    from nextsim_tpu_torch.ops import momentum_cuda
+
+    if warm:
+        grad()
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    momentum_cuda.launches = 0
+    t0 = time.perf_counter()
+    g = grad()
+    sync()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = momentum_cuda.launches
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    prof = profiled(grad, host_events=False)[1:] if profile else None
+    if not bool(torch.isfinite(g).all()) or float(g.abs().max()) <= 0.0:
+        raise AssertionError("gradient: not finite, or zero")
+    return g, ms, launches, peak, prof
+
+
+def _rel(a, b, norm):
+    import torch
+
+    d = (a - b).double()
+    if norm == "l2":
+        return float(torch.linalg.vector_norm(d) / torch.linalg.vector_norm(b.double()))
+    return float(d.abs().max() / b.double().abs().max())
+
+
+def gradient_phase(smi: str) -> int:
+    """Phase 23: d(mean KE after one step)/d(wind_u) through ``raw_step_fn``
+    at 464^2 (BBM, 120 substeps, thermo off and on): SubstepLoop (the
+    kernel forward, the plain body's checkpointed recompute backward)
+    against straight autograd through the plain loop on the card, in float32
+    (relative L2 within GRAD_REL_L2_F32) and float64 (max norm within
+    GRAD_REL_MAX_F64); a directional central difference in float64
+    (GRAD_FD_RTOL_F64 at GRAD_FD_EPS); a 3-step rollout. Prints ms, kernel
+    launches, device busy and peak memory of each. Returns the kernel's
+    launches on the gradient path (the Function's timed calls, each counted
+    from zero)."""
+    import torch
+
+    from nextsim_tpu_torch.ops import momentum_cuda
+
+    t_phase = time.perf_counter()
+    launches = 0
+    report = []
+    per_loop = momentum_cuda.launches_for(120, 464, 464)
+    for name, over in (("thermo off", GRAD), ("thermo on", GRAD_THERMO)):
+        t0 = time.perf_counter()
+        sim = make_sim(over)
+        sim.step()
+        t_init = time.perf_counter() - t0
+        grad, _, _ = ke_gradient(sim)
+        g, ms, n, peak, prof = measure_gradient(grad, profile=True)
+        if n != per_loop:
+            raise AssertionError(f"gradient {name}: {n} kernel launches, expected {per_loop}")
+        launches += n
+        with straight_autograd():  # warm too: its first call grows the allocator's pool by GiBs
+            g_ref, ms_ref, n_ref, peak_ref, prof_ref = measure_gradient(grad, profile=True)
+        if n_ref:
+            raise AssertionError(f"gradient {name}: the straight run launched the kernel {n_ref} times")
+        rel = _rel(g, g_ref, "l2")
+        if rel > GRAD_REL_L2_F32:
+            raise AssertionError(f"gradient {name}: SubstepLoop vs straight autograd {rel:.3e} (relative L2)")
+        report.append(f"{name} f32 (init and a step {t_init:.1f} s): SubstepLoop {ms:.1f} ms, {n} kernel launches, "
+                      f"{prof[1]} kernels, device busy {prof[0]:.1f} ms, peak {peak:.3f} GiB; straight autograd "
+                      f"{ms_ref:.1f} ms, {prof_ref[1]} kernels, busy {prof_ref[0]:.1f} ms, peak {peak_ref:.3f} GiB; "
+                      f"relative L2 {rel:.3e}, max {_rel(g, g_ref, 'max'):.3e}")
+        if name == "thermo off":
+            t0 = time.perf_counter()
+            grad, _, _ = ke_gradient(sim, steps=GRAD_ROLLOUT)
+            g, ms, n, peak, prof = measure_gradient(grad, warm=False, profile=True)
+            if n != GRAD_ROLLOUT * per_loop:
+                raise AssertionError(f"gradient rollout: {n} kernel launches, expected {GRAD_ROLLOUT * per_loop}")
+            launches += n
+            report.append(f"{GRAD_ROLLOUT}-step rollout f32 ({time.perf_counter() - t0:.1f} s with the profiled "
+                          f"call): {ms:.1f} ms, {n} kernel launches, {prof[1]} kernels, busy {prof[0]:.1f} ms, "
+                          f"peak {peak:.3f} GiB")
+        del sim, grad, g, g_ref
+
+    t0 = time.perf_counter()
+    sim = make_sim(GRAD, "float64")
+    sim.step()
+    grad, loss, wind = ke_gradient(sim)
+    g, ms, n, peak, _ = measure_gradient(grad)
+    per_loop64 = momentum_cuda.launches_for(120, 464, 464, torch.float64)
+    if n != per_loop64:
+        raise AssertionError(f"gradient f64: {n} kernel launches, expected {per_loop64}")
+    launches += n
+    with straight_autograd():
+        g_ref, ms_ref, _, peak_ref, _ = measure_gradient(grad)
+    rel = _rel(g, g_ref, "max")
+    if rel > GRAD_REL_MAX_F64:
+        raise AssertionError(f"gradient f64: SubstepLoop vs straight autograd {rel:.3e} (relative max)")
+    rng = np.random.default_rng(0)
+    d = rng.standard_normal(tuple(wind.shape))
+    d = 0.25 * (np.roll(d, 1, 0) + np.roll(d, -1, 0) + np.roll(d, 1, 1) + np.roll(d, -1, 1))
+    d = torch.as_tensor(d, device="cuda")
+    ad = float((g * d).sum())
+    fds = {}
+    with torch.no_grad():
+        for eps in (1e-3, GRAD_FD_EPS):
+            fds[eps] = (float(loss(wind + eps * d)) - float(loss(wind - eps * d))) / (2 * eps)
+    fd = fds[GRAD_FD_EPS]
+    if fd == 0.0 or abs(ad - fd) > GRAD_FD_RTOL_F64 * abs(fd):
+        raise AssertionError(f"gradient f64: directional derivative {ad:.6e} against the central difference {fd:.6e}")
+    report.append(f"thermo off f64 ({time.perf_counter() - t0:.1f} s): SubstepLoop {ms:.1f} ms, {n} kernel launches, "
+                  f"peak {peak:.3f} GiB; straight {ms_ref:.1f} ms, peak {peak_ref:.3f} GiB; relative max {rel:.3e}; "
+                  f"directional derivative {ad:.9e} against the central difference " + ", ".join(
+                      f"{v:.9e} at eps {e:g} ({abs(ad - v) / abs(v):.3e})" for e, v in fds.items()))
+    phase("grad", f"d(mean KE)/d(wind_u) through raw_step_fn at 464^2, BBM, 120 substeps, in "
+          f"{time.perf_counter() - t_phase:.1f} s: " + "; ".join(report) + f"; {smi}")
+    return launches
+
+
 @contextlib.contextmanager
 def data_dir(path: Path):
     """NEXTSIM_DATA_DIR set to ``path`` inside the block."""
@@ -2035,6 +2227,9 @@ def main() -> int:
         ensemble_driver(tmp, smi)
         path_launches["validation"] = validation_run(tmp, smi, ens)
         del ens
+
+    # 23. gradients through the step
+    path_launches["gradient"] = gradient_phase(smi)
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     if min(path_launches.values()) <= 0:
         raise AssertionError(f"a path ran without the kernel: {path_launches}")

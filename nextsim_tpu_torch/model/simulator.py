@@ -277,6 +277,12 @@ class Simulator:
             state = nesting.apply_nesting(state, nest, weight, npar)
         return state, diag, checks.violations(state, use_young_ice=dyn.use_young_ice)
 
+    #: the JAX package's name for the step function: ``raw_step_fn(state,
+    #: forcing, tinfo)`` -> (state', diag, violation flags), differentiable
+    #: end to end (thermodynamics, the substep loop, transport); on the card
+    #: the substep loop's gradient goes through ``momentum_cuda.SubstepLoop``
+    raw_step_fn = _step_fn
+
     def _fsd_block(self, state, forcing, diag):
         """The floe-size distribution's part of a step: rescale to the new
         total concentration, welding on freezing, breakup under waves and

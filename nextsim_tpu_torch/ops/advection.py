@@ -22,6 +22,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from nextsim_tpu_torch.core import ties
+
 
 def face_velocities(u_node, v_node) -> Tuple[torch.Tensor, torch.Tensor]:
     """(u_face (ny, nx+1), v_face (ny+1, nx)) normal velocities."""
@@ -127,10 +129,10 @@ def advect_intensive(q, u_face, v_face, dt: float, dx: float, mask, second_order
     dS = qp[1:-1, 1:-1] - qp[:-2, 1:-1]
     dN = qp[2:, 1:-1] - qp[1:-1, 1:-1]
     adv = (
-        torch.clamp(uW, min=0.0) * dW
-        + torch.clamp(uE, max=0.0) * dE
-        + torch.clamp(vS, min=0.0) * dS
-        + torch.clamp(vN, max=0.0) * dN
+        ties.maximum(uW, 0.0) * dW
+        + ties.minimum(uE, 0.0) * dE
+        + ties.maximum(vS, 0.0) * dS
+        + ties.minimum(vN, 0.0) * dN
     )
     return (q - dtdx * adv) * mask
 

@@ -24,6 +24,7 @@ import math
 import torch
 
 from nextsim_tpu_torch.core import constants as phys
+from nextsim_tpu_torch.core import ties
 from nextsim_tpu_torch.ops.rheology import _fast_pow, rdiv
 
 NU_AIR = 1.5e-5  # kinematic viscosity of air [m2/s]
@@ -46,14 +47,14 @@ def _kansas_m(x):
 
 def _psi_m_paulson(z):
     """Paulson (1970) momentum psi: Kansas unstable, linear stable."""
-    x = (1.0 - 16.0 * torch.clamp(z, max=0.0)) ** 0.25
-    return torch.where(z < 0.0, _kansas_m(x), -5.0 * torch.clamp(z, min=0.0))
+    x = (1.0 - 16.0 * ties.minimum(z, 0.0)) ** 0.25
+    return torch.where(z < 0.0, _kansas_m(x), -5.0 * ties.maximum(z, 0.0))
 
 
 def _psi_h_paulson(z):
-    x = torch.sqrt(torch.abs(1.0 - 16.0 * torch.clamp(z, max=0.0)))
+    x = torch.sqrt(torch.abs(1.0 - 16.0 * ties.minimum(z, 0.0)))
     unstable = 2.0 * torch.log(0.5 * (1.0 + x))
-    return torch.where(z < 0.0, unstable, -5.0 * torch.clamp(z, min=0.0))
+    return torch.where(z < 0.0, unstable, -5.0 * ties.maximum(z, 0.0))
 
 
 def _psi_convective(y):
@@ -66,26 +67,26 @@ def _psi_convective(y):
 
 def _psi_m_coare(z):
     """COARE blended psi_m (Fairall et al. 2003, Eq. A3/A4)."""
-    zn = torch.clamp(z, max=0.0)
+    zn = ties.minimum(z, 0.0)
     psik = _kansas_m((1.0 - 15.0 * zn) ** 0.25)
     psic = _psi_convective((1.0 - 10.15 * zn) ** (1.0 / 3.0))
     f = zn * zn / (1.0 + zn * zn)
     unstable = (1.0 - f) * psik + f * psic
-    zp = torch.clamp(z, min=0.0)
-    c = torch.clamp(0.35 * zp, max=50.0)
+    zp = ties.maximum(z, 0.0)
+    c = ties.minimum(0.35 * zp, 50.0)
     stable = -((1.0 + zp) + 0.6667 * (zp - 14.28) * torch.exp(-c) + 8.525)
     return torch.where(z < 0.0, unstable, stable)
 
 
 def _psi_h_coare(z):
-    zn = torch.clamp(z, max=0.0)
+    zn = ties.minimum(z, 0.0)
     x = torch.sqrt(torch.abs(1.0 - 15.0 * zn))
     psik = 2.0 * torch.log(0.5 * (1.0 + x))
     psic = _psi_convective((1.0 - 34.15 * zn) ** (1.0 / 3.0))
     f = zn * zn / (1.0 + zn * zn)
     unstable = (1.0 - f) * psik + f * psic
-    zp = torch.clamp(z, min=0.0)
-    c = torch.clamp(0.35 * zp, max=50.0)
+    zp = ties.maximum(z, 0.0)
+    c = ties.minimum(0.35 * zp, 50.0)
     stable = -(
         (1.0 + 2.0 * zp / 3.0) ** 1.5 + 0.6667 * (zp - 14.28) * torch.exp(-c) + 8.525
     )
@@ -97,25 +98,25 @@ _BH_A, _BH_B, _BH_C, _BH_D = 1.0, 2.0 / 3.0, 5.0, 0.35
 
 
 def _psi_m_ecmwf(z):
-    zn = torch.clamp(z, max=0.0)
+    zn = ties.minimum(z, 0.0)
     unstable = _kansas_m((1.0 - 16.0 * zn) ** 0.25)
-    zp = torch.clamp(z, min=0.0)
+    zp = ties.maximum(z, 0.0)
     stable = -(
         _BH_A * zp
-        + _BH_B * (zp - _BH_C / _BH_D) * torch.exp(-torch.clamp(_BH_D * zp, max=50.0))
+        + _BH_B * (zp - _BH_C / _BH_D) * torch.exp(-ties.minimum(_BH_D * zp, 50.0))
         + _BH_B * _BH_C / _BH_D
     )
     return torch.where(z < 0.0, unstable, stable)
 
 
 def _psi_h_ecmwf(z):
-    zn = torch.clamp(z, max=0.0)
+    zn = ties.minimum(z, 0.0)
     x = torch.sqrt(torch.abs(1.0 - 16.0 * zn))
     unstable = 2.0 * torch.log(0.5 * (1.0 + x))
-    zp = torch.clamp(z, min=0.0)
+    zp = ties.maximum(z, 0.0)
     stable = -(
         (1.0 + 2.0 * _BH_A * zp / 3.0) ** 1.5
-        + _BH_B * (zp - _BH_C / _BH_D) * torch.exp(-torch.clamp(_BH_D * zp, max=50.0))
+        + _BH_B * (zp - _BH_C / _BH_D) * torch.exp(-ties.minimum(_BH_D * zp, 50.0))
         + _BH_B * _BH_C / _BH_D
         - 1.0
     )
@@ -127,26 +128,26 @@ def _psi_h_ecmwf(z):
 # ---------------------------------------------------------------------------
 
 def _rough_coare30(ustar, u10n):
-    charn = torch.clamp(0.011 + (0.018 - 0.011) * (u10n - 10.0) / 8.0, 0.011, 0.018)
-    us = torch.clamp(ustar, min=1e-4)
+    charn = ties.clip(0.011 + (0.018 - 0.011) * (u10n - 10.0) / 8.0, 0.011, 0.018)
+    us = ties.maximum(ustar, 1e-4)
     z0 = charn * us * us / phys.g + rdiv(0.11 * NU_AIR, us)
     rr = z0 * us / NU_AIR
-    z0q = torch.clamp(5.5e-5 * rr ** -0.6, max=1.15e-4)
+    z0q = ties.minimum(5.5e-5 * rr ** -0.6, 1.15e-4)
     return z0, z0q, z0q  # COARE 3.0 uses the same scalar roughness for t and q
 
 
 def _rough_coare36(ustar, u10n):
     # Edson et al. (2013): Charnock linear in wind, capped (AeroBulk coare3p6)
-    charn = torch.clamp(0.0017 * u10n - 0.005, 0.011, 0.028)
-    us = torch.clamp(ustar, min=1e-4)
+    charn = ties.clip(0.0017 * u10n - 0.005, 0.011, 0.028)
+    us = ties.maximum(ustar, 1e-4)
     z0 = charn * us * us / phys.g + rdiv(0.11 * NU_AIR, us)
     rr = z0 * us / NU_AIR
-    z0q = torch.clamp(5.8e-5 * rr ** -0.72, max=1.6e-4)
+    z0q = ties.minimum(5.8e-5 * rr ** -0.72, 1.6e-4)
     return z0, z0q, z0q
 
 
 def _rough_ecmwf(ustar, u10n):
-    us = torch.clamp(ustar, min=1e-4)
+    us = ties.maximum(ustar, 1e-4)
     z0 = rdiv(0.11 * NU_AIR, us) + 0.018 * us * us / phys.g
     z0t = rdiv(0.40 * NU_AIR, us)
     z0q = rdiv(0.62 * NU_AIR, us)
@@ -181,7 +182,7 @@ def turbulent_scales(scheme: str, u, sst, tair, sphuma, sphumw,
 
     kv = phys.vonKarman
     g = phys.g
-    u = torch.clamp(u, min=0.1)
+    u = ties.maximum(u, 0.1)
     tairK = tair + phys.tfrwK
     dtheta = tair + phys.Gamma_d * zt - sst  # air minus surface, potential
     dq = sphuma - sphumw
@@ -220,23 +221,23 @@ def turbulent_scales(scheme: str, u, sst, tair, sphuma, sphumw,
         z0, z0t, z0q = rough(ustar, u10n)
         wflux = tstar * (1.0 + 0.61 * sphuma) + 0.61 * tairK * qstar
         L = tv * ustar * ustar / (kv * g * _nonzero(wflux))
-        zeta_u = torch.clamp(rdiv(zu, L), -10.0, 10.0)
-        zeta_t = torch.clamp(rdiv(zt, L), -10.0, 10.0)
+        zeta_u = ties.clip(rdiv(zu, L), -10.0, 10.0)
+        zeta_t = ties.clip(rdiv(zt, L), -10.0, 10.0)
         if gust_beta > 0.0:
-            bf = torch.clamp(rdiv(-g, tv) * ustar * wflux, min=1e-9)
+            bf = ties.maximum(rdiv(-g, tv) * ustar * wflux, 1e-9)
             ug = gust_beta * (bf * gust_zi) ** (1.0 / 3.0)
             ublend = torch.sqrt(u * u + ug * ug)
         cd_sqrt = rdiv(kv, torch.log(rdiv(zu, z0)) - psi_m(zeta_u))
-        ch_fac = rdiv(kv, torch.log(rdiv(zt, torch.clamp(z0t, min=1e-9))) - psi_h(zeta_t))
-        ce_fac = rdiv(kv, torch.log(rdiv(zt, torch.clamp(z0q, min=1e-9))) - psi_h(zeta_t))
+        ch_fac = rdiv(kv, torch.log(rdiv(zt, ties.maximum(z0t, 1e-9))) - psi_h(zeta_t))
+        ce_fac = rdiv(kv, torch.log(rdiv(zt, ties.maximum(z0q, 1e-9))) - psi_h(zeta_t))
         if scheme == "andreas":
-            ustar = torch.clamp(_ustar_andreas(u10n), min=1e-4)
+            ustar = ties.maximum(_ustar_andreas(u10n), 1e-4)
         else:
-            ustar = torch.clamp(cd_sqrt * ublend, min=1e-4)
+            ustar = ties.maximum(cd_sqrt * ublend, 1e-4)
         tstar = ch_fac * dtheta
         qstar = ce_fac * dq
         # neutral 10-m wind anchored on the measured wind at zu
-        u10n = torch.clamp(ublend - ustar / kv * (log_zu10 - psi_m(zeta_u)), min=0.1)
+        u10n = ties.maximum(ublend - ustar / kv * (log_zu10 - psi_m(zeta_u)), 0.1)
 
     cd = _fast_pow(ustar / ublend, 2)
     ch = (ustar / ublend) * ch_fac
@@ -245,7 +246,7 @@ def turbulent_scales(scheme: str, u, sst, tair, sphuma, sphumw,
 
 
 def _cd_n10(w):
-    w = torch.clamp(w, 0.5, 33.0)
+    w = ties.clip(w, 0.5, 33.0)
     return 1e-3 * (rdiv(2.7, w) + 0.142 + w / 13.09 - 3.14807e-10 * _fast_pow(w, 6))
 
 
@@ -254,7 +255,7 @@ def _ncar_scales(u, dtheta, dq, tv, sphuma, tairK, zu, zt, n_iter):
     coefficients adjusted to height/stability with Paulson psi functions."""
     kv = phys.vonKarman
     g = phys.g
-    u = torch.clamp(u, min=0.5)  # LY04 floor
+    u = ties.maximum(u, 0.5)  # LY04 floor
     log_zu10 = math.log(zu / 10.0)
     log_zt10 = math.log(zt / 10.0)
 
@@ -273,8 +274,8 @@ def _ncar_scales(u, dtheta, dq, tv, sphuma, tairK, zu, zt, n_iter):
 
         wflux = tstar * (1.0 + 0.61 * sphuma) + 0.61 * tairK * qstar
         L = tv * ustar * ustar / (kv * g * _nonzero(wflux))
-        zeta_u = torch.clamp(rdiv(zu, L), -10.0, 10.0)
-        zeta_t = torch.clamp(rdiv(zt, L), -10.0, 10.0)
+        zeta_u = ties.clip(rdiv(zu, L), -10.0, 10.0)
+        zeta_t = ties.clip(rdiv(zt, L), -10.0, 10.0)
         pm, ph = _psi_m_paulson(zeta_u), _psi_h_paulson(zeta_t)
 
         cdn_sqrt = torch.sqrt(cdn)
@@ -286,9 +287,9 @@ def _ncar_scales(u, dtheta, dq, tv, sphuma, tairK, zu, zt, n_iter):
         den_e = 1.0 + cen / (kv * cdn_sqrt) * (log_zt10 - ph)
         ce = cen * cd_sqrt / cdn_sqrt / den_e
 
-        ustar = torch.clamp(cd_sqrt * u, min=1e-4)
+        ustar = ties.maximum(cd_sqrt * u, 1e-4)
         tstar = ch / cd_sqrt * dtheta
         qstar = ce / cd_sqrt * dq
-        u10n = torch.clamp(u / den_m, min=0.5)
+        u10n = ties.maximum(u / den_m, 0.5)
 
     return dict(ustar=ustar, tstar=tstar, qstar=qstar, cd=cd, ch=ch, ce=ce, u10n=u10n)

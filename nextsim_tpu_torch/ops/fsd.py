@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from nextsim_tpu_torch.core import constants as phys
+from nextsim_tpu_torch.core import ties
 from nextsim_tpu_torch.ops.rheology import _fast_pow
 
 #: cap on the per-cell welding substeps (the JAX package's loop length)
@@ -168,7 +169,7 @@ def update_fsd(conc_fsd, ctot) -> torch.Tensor:
     """Rescale the FSD to the (changed) total concentration, conserving its
     shape (reference: updateFSD, fe.cpp)."""
     ctot2 = conc_fsd.sum(dim=0)
-    scale = ctot / torch.clamp(ctot2, min=1e-30)
+    scale = ctot / ties.maximum(ctot2, 1e-30)
     rescaled = conc_fsd * scale[None]
     # empty FSD but ice present: put everything in the unbroken bin
     empty = (ctot2 <= 0.0) & (ctot > 0.0)
@@ -196,8 +197,8 @@ def wave_breakup(
     if p.breakup_cell_average_thickness:
         h = thick
     else:
-        h = (thick + h_young) / torch.clamp(ctot, min=1e-30)
-    h = torch.clamp(h, min=p.breakup_thick_min)
+        h = (thick + h_young) / ties.maximum(ctot, 1e-30)
+    h = ties.maximum(h, p.breakup_thick_min)
 
     # flexural-failure floe size limit (Mellor 1984 / Boutin 2018)
     d_flex = 0.5 * (
@@ -217,12 +218,12 @@ def wave_breakup(
     out = [conc_fsd[j] for j in range(n)]
     # the breakup probability does not depend on the bin
     pj0 = p_inf * (1.0 - torch.exp(-p_inf * dt_cpl / tau_w))
-    lam_den = p.breakup_coef2 * torch.clamp(lam, min=1e-3)
-    flex_den = p.breakup_coef3 * torch.clamp(d_flex, min=1e-3)
+    lam_den = p.breakup_coef2 * ties.maximum(lam, 1e-3)
+    flex_den = p.breakup_coef3 * ties.maximum(d_flex, 1e-3)
     for j in range(n):
         cj = float(bins.centre[j])
-        lim_lambda = torch.clamp(torch.tanh((cj - p.breakup_coef1 * lam) / lam_den), min=0.0)
-        lim_dflex = torch.clamp(torch.tanh((cj - d_flex) / flex_den), min=0.0)
+        lim_lambda = ties.maximum(torch.tanh((cj - p.breakup_coef1 * lam) / lam_den), 0.0)
+        lim_dflex = ties.maximum(torch.tanh((cj - d_flex) / flex_den), 0.0)
         if p.breakup_type in ("uniform_size", "zhang"):
             pj = pj0 * lim_dflex * lim_lambda
             broken = torch.where(active & (pj > 0.0), out[j] * pj, 0.0)
@@ -239,9 +240,9 @@ def wave_breakup(
             fragility = lim_dflex * lim_lambda
             broken = torch.where(active & (fragility > 0.0), out[j] * pj0 * fragility, 0.0)
             out[j] = out[j] - broken
-            frag_safe = torch.clamp(fragility, min=1e-10)
-            exponent = torch.clamp(
-                2.0 - (2.0 + torch.log(frag_safe) / math.log(2.0)), min=1e-6
+            frag_safe = ties.maximum(fragility, 1e-10)
+            exponent = ties.maximum(
+                2.0 - (2.0 + torch.log(frag_safe) / math.log(2.0)), 1e-6
             )
 
             def powe(base):
@@ -301,7 +302,7 @@ def welding_roach(conc_fsd, dt: float, p: FSDParams, bins: FSDBins, freezing):
     ctot = ctot_all[active]
     # stability limit -> per-cell substep count (fe.cpp:4754-4757), capped
     stability = dt * p.welding_kappa * ctot * float(bins.scaled_up[-1])
-    ndt = torch.clamp(torch.ceil(stability + 0.5), 1.0, float(WELDING_NDT_MAX))
+    ndt = ties.clip(torch.ceil(stability + 0.5), 1.0, float(WELDING_NDT_MAX))
     step_fac = (dt / ndt)[None] * p.welding_kappa
     n_loop = int(ndt.max())
 
@@ -323,7 +324,7 @@ def welding_roach(conc_fsd, dt: float, p: FSDParams, bins: FSDBins, freezing):
         # bin m loses coag[m], gains coag[m-1] (fe.cpp:4796-4803)
         gain = torch.cat([zero_row, coag[:-1]])
         upd = c - step_fac * (coag - gain)
-        c = torch.where(live[None], torch.clamp(upd, min=0.0), c)
+        c = torch.where(live[None], ties.maximum(upd, 0.0), c)
     out = conc_fsd.clone()
     out[:, active] = c
     return out
@@ -336,7 +337,7 @@ def fsd_damage(conc_fsd, damage, p: FSDParams, broke):
         return damage
     ctot = conc_fsd.sum(dim=0)
     broken_frac = torch.where(
-        ctot > 0.0, conc_fsd[:-1].sum(dim=0) / torch.clamp(ctot, min=1e-30), 0.0
+        ctot > 0.0, conc_fsd[:-1].sum(dim=0) / ties.maximum(ctot, 1e-30), 0.0
     )
     if p.damage_type == 1:
         target = p.damage_max * broken_frac
@@ -349,7 +350,7 @@ def dmax_dmean(conc_fsd, p: FSDParams, bins: FSDBins, threshold: float = 0.1):
     """Diagnostics: max floe size (9th decile by default) and mean floe size
     (reference: Dmax/Dmean gridoutput variables)."""
     ctot = conc_fsd.sum(dim=0)
-    frac = conc_fsd / torch.clamp(ctot, min=1e-30)[None]
+    frac = conc_fsd / ties.maximum(ctot, 1e-30)[None]
     cum = torch.cumsum(frac, dim=0)
     # dmax: first bin where cumulative fraction exceeds (1 - threshold); an
     # all-false column gives bin 0 (the first of the tied zeros)
@@ -386,42 +387,42 @@ def lateral_melt_type3(
     h0 = torch.where(
         conc_young > 0.0,
         h_young_min + 2.0 * (h_young - h_young_min * conc_young)
-        / torch.clamp(conc_young, min=1e-30),
+        / ties.maximum(conc_young, 1e-30),
         0.0,
     )
 
     unbroken = torch.abs(conc_fsd[-1] - ctot) < 1e-7
 
     # --- unbroken: melt_type 2 behaviour (fe.cpp:5617-5626) ---------------
-    del_c2 = PhiM * (1.0 - ctot) * torch.clamp(qow, max=0.0) * dt / torch.clamp(
-        hi * qi + hs * qs, min=1e-30
+    del_c2 = PhiM * (1.0 - ctot) * ties.minimum(qow, 0.0) * dt / ties.maximum(
+        hi * qi + hs * qs, 1e-30
     )
     del_c2 = torch.maximum(del_c2, -ctot)
     qow_unbroken = qow * (1.0 - PhiM)
 
     # --- broken: perimeter-weighted lateral melt (fe.cpp:5628-5641) -------
-    dT = torch.clamp(tw_new - tfrw, min=0.0)
+    dT = ties.maximum(tw_new - tfrw, 0.0)
     lat_melt_rate = -2.0 * m1 * _fast_pow_arr(dT, m2)  # <0 [m/s]
     cat0 = lat_melt_rate * conc_fsd[0] / float(bins.width[0]) * dt
     del_c3 = cat0
     for j in range(p.num_bins - 1):
         del_c3 = del_c3 + lat_melt_rate * (conc_fsd[j] * 2.0 / float(bins.centre[j])) * dt
     qow_broken = qow - del_c3 * (hi * qi * conc + h0 * qi * conc_young) / (
-        dt * torch.clamp(ctot, min=1e-30)
+        dt * ties.maximum(ctot, 1e-30)
     )
 
     del_c_melt = torch.where(melting, torch.where(unbroken, del_c2, del_c3), 0.0)
     qow = torch.where(melting, torch.where(unbroken, qow_unbroken, qow_broken), qow)
     lat_melt_rate = torch.where(melting & (~unbroken), lat_melt_rate, 0.0)
 
-    del_c = (conc / torch.clamp(ctot, min=1e-30)) * del_c_melt
-    del_c_young = (conc_young / torch.clamp(ctot, min=1e-30)) * del_c_melt
+    del_c = (conc / ties.maximum(ctot, 1e-30)) * del_c_melt
+    del_c_young = (conc_young / ties.maximum(ctot, 1e-30)) * del_c_melt
     return del_c, del_c_young, qow, lat_melt_rate
 
 
 def _fast_pow_arr(x, e: float):
     """x**e for x>=0 via exp/log with the x==0 lane fixed to 0."""
-    safe = torch.clamp(x, min=1e-30)
+    safe = ties.maximum(x, 1e-30)
     return torch.where(x > 0.0, torch.exp(e * torch.log(safe)), 0.0)
 
 
@@ -456,4 +457,4 @@ def redistribute_thermo_fsd(conc_fsd, lat_melt_rate, dt: float, p: FSDParams, bi
         out[n - 1] + conc_fsd[n - 1] / grow * dt * lat_melt_rate,
         out[n - 1],
     )
-    return torch.stack([torch.clamp(o, min=0.0) for o in out])
+    return torch.stack([ties.maximum(o, 0.0) for o in out])

@@ -25,6 +25,7 @@ from types import SimpleNamespace
 import torch
 
 from nextsim_tpu_torch.core import constants as phys
+from nextsim_tpu_torch.core import ties
 from nextsim_tpu_torch.ops import momentum_cuda, rheology, stencil
 from nextsim_tpu_torch.ops.rheology import BBMParams, EVPParams, rdiv
 
@@ -67,8 +68,8 @@ def slab_mass(state, p: DynParams):
         total_snow = total_snow + state.hs_young
     # the 1e-15 division floor of the JAX package (its square stays
     # float32-normal); floored lanes are masked by the where
-    mass = (phys.rhoi * total_thick + phys.rhos * total_snow) / torch.clamp(
-        total_conc, min=1e-15
+    mass = (phys.rhoi * total_thick + phys.rhos * total_snow) / ties.maximum(
+        total_conc, 1e-15
     )
     return torch.where(total_conc > 0.0, mass, 0.0)
 
@@ -80,15 +81,15 @@ def _basal_cbu(state, forcing, ssh_cell, p: DynParams):
         return torch.zeros_like(state.conc)
     max_keel_depth = 28.0
     min_water_depth = 2.0
-    depth_eff = torch.clamp(
-        ssh_cell + torch.clamp(forcing.depth, min=min_water_depth), min=0.0
+    depth_eff = ties.maximum(
+        ssh_cell + ties.maximum(forcing.depth, min_water_depth), 0.0
     )
     mean_keel_depth = torch.minimum(p.k1 * state.thick, state.conc * max_keel_depth)
     critical_h = state.conc * depth_eff / p.k1
     critical_h_mod = mean_keel_depth / p.k1
     return (
         p.k2
-        * torch.clamp(critical_h_mod - critical_h, min=0.0)
+        * ties.maximum(critical_h_mod - critical_h, 0.0)
         * torch.exp(-p.Cb * (1.0 - state.conc))
     )
 
@@ -201,8 +202,9 @@ def substep_setup(state, forcing, grid_arrays, dt: float, p: DynParams):
 
     steps = p.substeps
     dte = dt / steps
-    cos_ota = math.cos(math.radians(p.ocean_turning_angle_deg))
-    sin_ota = math.sin(math.radians(p.ocean_turning_angle_deg))
+    ota = p.ocean_turning_angle_deg * (math.pi / 180.0)  # math.radians, bitwise
+    cos_ota = ties.scalar("cos", ota)
+    sin_ota = ties.scalar("sin", ota)
     min_m = phys.rhoi * p.min_h
 
     # ---- element prep (reference: fe.cpp:10235-10341) --------------------
@@ -213,11 +215,11 @@ def substep_setup(state, forcing, grid_arrays, dt: float, p: DynParams):
     # ---- node prep (reference: fe.cpp:10344-10416) -----------------------
     # lumped mass & nodal mean mass: area-weighted over adjacent ocean cells
     area_sum = stencil.cells_to_node_sum(mask) * area
-    node_mass = stencil.cells_to_node_sum(element_mass * area) / torch.clamp(
-        area_sum, min=1.0
+    node_mass = stencil.cells_to_node_sum(element_mass * area) / ties.maximum(
+        area_sum, 1.0
     )
     # reciprocal lumped mass matrix: quads lump A/4 per corner
-    rlmass = rdiv(4.0, torch.clamp(area_sum, min=1.0))
+    rlmass = rdiv(4.0, ties.maximum(area_sum, 1.0))
 
     c_bu = stencil.node_max_of_cells(element_cbu)
 
@@ -238,7 +240,7 @@ def substep_setup(state, forcing, grid_arrays, dt: float, p: DynParams):
         dragp = torch.where(
             tot_c > 0.0,
             (state.drag_ui * state.conc + state.drag_ui_young * state.conc_young)
-            / torch.clamp(tot_c, min=1e-15),
+            / ties.maximum(tot_c, 1e-15),
             state.drag_ui,
         )
     else:
@@ -279,14 +281,14 @@ def substep_setup(state, forcing, grid_arrays, dt: float, p: DynParams):
         )
         bbm_heal = rdiv(dte, state.time_relaxation_damage) * bbm_expC
         bbm_rtd = torch.sqrt(p.bbm.young * bbm_expC) / (
-            dx * math.sqrt(2.0 * (1.0 + p.bbm.nu0) * phys.rhoi)
+            dx * ties.scalar("sqrt", 2.0 * (1.0 + p.bbm.nu0) * phys.rhoi)
         )
     else:
         bbm_expC = bbm_pmax = bbm_heal = bbm_rtd = None
 
     # loop-invariant node coefficients (node_mass, fcor are fixed)
     dtep_const = dte / (p.mevp_beta + 1.0) if dyn_type == "mevp" else dte
-    dte_over_mass_const = rdiv(dtep_const, torch.clamp(node_mass, min=min_m))
+    dte_over_mass_const = rdiv(dtep_const, ties.maximum(node_mass, min_m))
     beta_cor_const = dtep_const * fcor
     dom_cos = dte_over_mass_const * cos_ota
     dom_sin = dte_over_mass_const * sin_ota_signed
@@ -366,8 +368,8 @@ def explicit_solve(state, forcing, grid_arrays, dt: float, p: DynParams):
     vtm_u, vtm_v = consts.vtm_u, consts.vtm_v
     ow = (node_mask > 0.5) & (node_dirichlet < 0.5) & torch.logical_not(consts.has_mass)
     mp = stencil.pad1(node_mask)
-    nbr_rden = rdiv(1.0, torch.clamp(
-        mp[:-2, 1:-1] + mp[2:, 1:-1] + mp[1:-1, :-2] + mp[1:-1, 2:], min=1.0
+    nbr_rden = rdiv(1.0, ties.maximum(
+        mp[:-2, 1:-1] + mp[2:, 1:-1] + mp[1:-1, :-2] + mp[1:-1, 2:], 1.0
     ))
     for _ in range(p.nit_ow):
         up = stencil.pad1(vt_u)
@@ -413,11 +415,11 @@ def free_drift(state, forcing, grid_arrays, dt: float, p: DynParams):
 
     duo = state.vt_u - forcing.ocean_u
     dvo = state.vt_v - forcing.ocean_v
-    nvo = torch.clamp(torch.sqrt(duo * duo + dvo * dvo + 1e-20), min=0.01)
+    nvo = ties.maximum(torch.sqrt(duo * duo + dvo * dvo + 1e-20), 0.01)
     coef_voce = (p.lin_drag_coef_water + p.quad_drag_coef_water * nvo) * phys.rhow
     dua = state.vt_u - forcing.wind_u
     dva = state.vt_v - forcing.wind_v
-    nva = torch.clamp(torch.sqrt(dua * dua + dva * dva + 1e-20), min=0.01)
+    nva = ties.maximum(torch.sqrt(dua * dua + dva * dva + 1e-20), 0.01)
     coef_vair = (p.lin_drag_coef_air + p.quad_drag_coef_air * nva) * phys.rhoa
 
     new_u = (coef_vair * forcing.wind_u + coef_voce * forcing.ocean_u) / (

@@ -16,6 +16,15 @@ mEVP displacement staying with the caller.
   not contiguous, on a plan that does not fit the shared memory, and on a
   failed build or launch. Nothing falls back to the plain version on the
   card.
+* A loop on the card whose gradient is recorded goes through
+  ``SubstepLoop``, a ``torch.autograd.Function``: the kernel forward, one
+  launch a segment with the carry kept at each launch boundary, and a
+  backward that recomputes one segment at a time with the plain body and
+  differentiates it (``substep_loop_checkpointed``). The JAX package has no
+  custom gradient here: ``jax.grad`` differentiates its XLA loop over the
+  same body. Any other loop on the card runs under ``torch.no_grad()``: the
+  kernel writes planes behind autograd's back, which must never reach a
+  graph.
 
 The kernel is temporally blocked: one launch advances every tile of the
 grid by ``k`` substeps in shared memory, on the tile plus a halo of ``k``
@@ -349,17 +358,27 @@ def substep_loop_blocked_reference(consts, carry, steps: int, dte: float, dt: fl
 def substep_loop(consts, carry, steps: int, dte: float, dt: float, dx: float,
                  dyn_type: str, p):
     """Run the substep loop: the plain version for a carry on the CPU, the
-    CUDA kernel for a carry on a CUDA device."""
+    CUDA kernel for a carry on a CUDA device. On the card, a loop whose
+    gradient is recorded (grad mode on, and a carry plane, a plane the body
+    reads or a tensor scalar of ``p`` requires grad) goes through
+    ``substep_loop_checkpointed``; any other runs under ``torch.no_grad()``
+    and returns planes that no graph holds."""
     device = carry[0].device
     if device.type == "cpu":
         return substep_loop_reference(consts, carry, steps, dte, dt, dx, dyn_type, p)
     if device.type != "cuda":
         raise ValueError(f"substep_loop: no kernel for device {device}")
-    return _substep_loop_cuda(consts, carry, steps, dte, dt, dx, dyn_type, p)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in _grad_inputs(consts, carry, p)):
+        return substep_loop_checkpointed(consts, carry, steps, dte, dt, dx, dyn_type, p)
+    with torch.no_grad():
+        return _substep_loop_cuda(consts, carry, steps, dte, dt, dx, dyn_type, p)
 
 
-def _substep_loop_cuda(consts, carry, steps, dte, dt, dx, dyn_type, p, plan: LaunchPlan = None):
-    global launches
+def _kernel_inputs(consts, carry, dyn_type):
+    """The carry's planes and the loop-invariant planes the kernel reads,
+    by name, checked: (state, consts). Raises on what the kernel does not
+    take."""
     if dyn_type not in _RHEOLOGY:
         raise ValueError(f"substep_loop: unknown rheology {dyn_type!r}")
     dtype = carry[0].dtype
@@ -381,13 +400,9 @@ def _substep_loop_cuda(consts, carry, steps, dte, dt, dx, dyn_type, p, plan: Lau
             raise ValueError(f"substep_loop: plane {name} is not contiguous")
         return a
 
+    state = {name: check(name, a, (ny1, nx1) if name.startswith(("vt", "ut")) else (ny, nx))
+             for name, a in zip(_STATE, carry)}
     planes = {}
-    for name, a in zip(_STATE, carry):
-        shape = (ny1, nx1) if name.startswith(("vt", "ut")) else (ny, nx)
-        # the launches alternate between two sets of state planes: the first
-        # is a copy, so the caller's tensors (e.g. the state's sigma) are
-        # left as they were
-        planes[name] = check(name, a, shape).clone()
     for name in _CELL_USED[dyn_type]:
         planes[name] = check(name, getattr(consts, name), (ny, nx))
     node_names = _NODE_USED + (("vtm_u", "vtm_v") if dyn_type == "mevp" else ())
@@ -396,19 +411,24 @@ def _substep_loop_cuda(consts, carry, steps, dte, dt, dx, dyn_type, p, plan: Lau
         if name == "solve" and isinstance(a, torch.Tensor) and a.dtype == torch.bool:
             a = a.to(dtype)  # the kernel tests solve > 0.5
         planes[name] = check(name, a, (ny1, nx1))
+    return state, planes
 
-    if plan is None:
-        sms = (torch.cuda.get_device_properties(device).multi_processor_count
-               if device.type == "cuda" else H100_SMS)
-        plan = launch_plan(ny, nx, steps, dtype, dyn_type, sms=sms)
-    if (plan.ny, plan.nx, plan.steps, plan.dyn_type, plan.itemsize) != (
-            ny, nx, steps, dyn_type, carry[0].element_size()):
-        raise ValueError("substep_loop: the plan is for another loop")
+
+def _default_plan(carry, steps, dyn_type) -> LaunchPlan:
+    """``launch_plan`` of this loop for the carry's device."""
+    device = carry[0].device
+    ny1, nx1 = carry[0].shape
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else H100_SMS)
+    return launch_plan(ny1 - 1, nx1 - 1, steps, carry[0].dtype, dyn_type, sms=sms)
+
+
+def _launch(planes, second, plan: LaunchPlan, launch_steps, dte, dt, dx, dyn_type, p):
+    """Run ``launch_steps`` launches of the kernel under ``plan``: launch g
+    reads the state planes of ``planes`` (g even) or ``second`` (g odd) and
+    writes the other set. Counts the launches; raises on a failed launch."""
+    global launches
     lib = _library()
-    if not plan.launches:
-        return tuple(planes[n] for n in _STATE)
-    # the second set; a plane the rheology does not update stays in the first
-    second = {n: torch.empty_like(planes[n]) for n in _STATE_USED[dyn_type]}
     ptrs = (ctypes.c_void_p * len(_PLANES))(
         *[planes[n].data_ptr() if n in planes else None for n in _PLANES]
     )
@@ -418,27 +438,219 @@ def _substep_loop_cuda(consts, carry, steps, dte, dt, dx, dyn_type, p, plan: Lau
     c_plan = _Plan(
         tile_h=plan.tile_h, tile_w=plan.tile_w, halo=plan.k, threads=plan.threads,
         blocks_y=plan.blocks_y, blocks_x=plan.blocks_x, n_planes=plan.n_planes,
-        smem_bytes=plan.smem_bytes, n_launches=len(plan.launches), pad_=0,
+        smem_bytes=plan.smem_bytes, n_launches=len(launch_steps), pad_=0,
     )
-    launch_steps = (ctypes.c_int * len(plan.launches))(*plan.launches)
-    params = _params(ny, nx, steps, dte, dt, dx, dyn_type, p)
-    fn = lib.nextsim_substeps_f32 if dtype == torch.float32 else lib.nextsim_substeps_f64
+    c_steps = (ctypes.c_int * len(launch_steps))(*launch_steps)
+    params = _params(plan.ny, plan.nx, plan.steps, dte, dt, dx, dyn_type, p)
+    device = planes["vt_u"].device
+    fn = lib.nextsim_substeps_f32 if plan.itemsize == 4 else lib.nextsim_substeps_f64
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ptrs, ptrs_b, ctypes.byref(params), ctypes.byref(c_plan), launch_steps,
+        err = fn(ptrs, ptrs_b, ctypes.byref(params), ctypes.byref(c_plan), c_steps,
                  ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(
             f"substep_loop: CUDA launch failed: {lib.nextsim_cuda_error_string(err).decode()}"
         )
-    launches += len(plan.launches)
+    launches += len(launch_steps)
+
+
+def _check_plan(plan: LaunchPlan, carry, steps, dyn_type):
+    ny1, nx1 = carry[0].shape
+    if (plan.ny, plan.nx, plan.steps, plan.dyn_type, plan.itemsize) != (
+            ny1 - 1, nx1 - 1, steps, dyn_type, carry[0].element_size()):
+        raise ValueError("substep_loop: the plan is for another loop")
+
+
+def _substep_loop_cuda(consts, carry, steps, dte, dt, dx, dyn_type, p, plan: LaunchPlan = None):
+    state, planes = _kernel_inputs(consts, carry, dyn_type)
+    plan = _default_plan(carry, steps, dyn_type) if plan is None else plan
+    _check_plan(plan, carry, steps, dyn_type)
+    _library()
+    # the launches alternate between two sets of state planes: the first is
+    # a copy, so the caller's tensors (e.g. the state's sigma) are left as
+    # they were; a plane the rheology does not update stays in the first
+    planes.update({n: a.clone() for n, a in state.items()})
+    if not plan.launches:
+        return tuple(planes[n] for n in _STATE)
+    second = {n: torch.empty_like(planes[n]) for n in _STATE_USED[dyn_type]}
+    _launch(planes, second, plan, plan.launches, dte, dt, dx, dyn_type, p)
     result = second if len(plan.launches) % 2 else planes
     return tuple(result.get(n, planes[n]) for n in _STATE)
+
+
+def _kernel_segment(consts, carry, k, dte, dt, dx, dyn_type, p, plan: LaunchPlan):
+    """One launch of the kernel under ``plan``, ``k`` substeps from
+    ``carry`` into new state planes (the carry is read, not written): the
+    forward of ``substep_loop_checkpointed`` on the card."""
+    state, planes = _kernel_inputs(consts, carry, dyn_type)
+    planes.update(state)
+    second = {n: torch.empty_like(state[n]) for n in _STATE_USED[dyn_type]}
+    _launch(planes, second, plan, (k,), dte, dt, dx, dyn_type, p)
+    return tuple(second.get(n, state[n]) for n in _STATE)
+
+
+# ---------------------------------------------------------------------------
+# Reverse mode
+# ---------------------------------------------------------------------------
+
+#: the loop-invariant planes ``momentum._build_substep`` reads
+_BODY_CONSTS = _CELL + _NODE + ("time_relaxation_damage",)
+
+
+def _param_tensors(p):
+    """(path, tensor) of every scalar of ``p`` (a DynParams, its bbm and evp
+    included) that is a tensor: a parameter a caller differentiates."""
+    out = []
+    for f in dataclasses.fields(p):
+        v = getattr(p, f.name)
+        if isinstance(v, torch.Tensor):
+            out.append(((f.name,), v))
+        elif dataclasses.is_dataclass(v):
+            out += [((f.name, g.name), getattr(v, g.name)) for g in dataclasses.fields(v)
+                    if isinstance(getattr(v, g.name), torch.Tensor)]
+    return out
+
+
+def _with_params(p, paths, values):
+    """``p`` with the scalars at ``paths`` replaced by ``values``."""
+    for path, v in zip(paths, values):
+        if len(path) == 1:
+            p = dataclasses.replace(p, **{path[0]: v})
+        else:
+            inner = dataclasses.replace(getattr(p, path[0]), **{path[1]: v})
+            p = dataclasses.replace(p, **{path[0]: inner})
+    return p
+
+
+def _grad_inputs(consts, carry, p):
+    """Every tensor the loop's result depends on: the carry, the planes the
+    body reads, the tensor scalars of ``p``."""
+    planes = [getattr(consts, n, None) for n in _BODY_CONSTS]
+    return [*carry, *(a for a in planes if isinstance(a, torch.Tensor)),
+            *(t for _, t in _param_tensors(p))]
+
+
+def _spec_inputs(spec, tensors):
+    """The body's namespace of planes and the parameters, from the
+    Function's inputs after the carry."""
+    n_c = len(spec.const_names)
+    consts = SimpleNamespace(**dict(spec.consts, **dict(zip(spec.const_names, tensors[:n_c]))))
+    return consts, _with_params(spec.p, spec.param_paths, tensors[n_c:])
+
+
+class SubstepLoop(torch.autograd.Function):
+    """The substep loop with a checkpointed backward.
+
+    Forward: ``spec.advance`` runs the loop segment by segment (on the card
+    one kernel launch a segment, ``spec.segments`` = the plan's launches)
+    and the carry at the start of every segment is kept: 8 planes a
+    segment, ~140 MB at 464^2 in float32 for 20 segments.
+
+    Backward: the segments last to first, each rebuilt from its checkpoint
+    with the plain body (``momentum._build_substep``) under
+    ``torch.enable_grad()`` and differentiated with ``torch.autograd.grad``
+    with respect to its carry in, the planes the body reads and the tensor
+    scalars of ``p``; the carry's gradient chains into the segment before,
+    the others add up. Only one segment's graph lives at a time. Boolean
+    planes (``solve``) get no gradient.
+
+    The inputs after ``spec`` are the 8 carry planes, the body's planes
+    (``spec.const_names``) and the tensor scalars (``spec.param_paths``).
+    """
+
+    @staticmethod
+    def forward(ctx, spec, *inputs):
+        carry = tuple(inputs[:8])
+        consts, p = _spec_inputs(spec, inputs[8:])
+        checkpoints = []
+        for k in spec.segments:
+            checkpoints.append(carry)
+            carry = spec.advance(consts, carry, k, spec.dte, spec.dt, spec.dx, spec.dyn_type, p)
+        ctx.spec = spec
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*inputs[8:], *(t for c in checkpoints for t in c))
+        # a plane the rheology leaves alone comes back as a copy, never as
+        # the input itself
+        return tuple(o.clone() if any(o is i for i in inputs) else o for o in carry)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from nextsim_tpu_torch.ops import momentum
+
+        spec = ctx.spec
+        n_c, n_p = len(spec.const_names), len(spec.param_paths)
+        saved = ctx.saved_tensors
+        wants = ctx.needs_input_grad[1:]
+
+        def leaf(t, grad):
+            return t.detach().requires_grad_(grad and t.is_floating_point())
+
+        extra = [leaf(t, w) for t, w in zip(saved[:n_c + n_p], wants[8:])]
+        consts, p = _spec_inputs(spec, extra)
+        body = momentum._build_substep(p, spec.dyn_type, spec.dte, spec.dt, spec.dx, consts)
+        wrt = [t for t in extra if t.requires_grad]
+        g_wrt = [None] * len(wrt)
+        g_carry = list(grads)
+        points = saved[n_c + n_p:]
+        for seg in reversed(range(len(spec.segments))):
+            if all(g is None for g in g_carry):
+                break
+            cin = tuple(leaf(t, True) for t in points[8 * seg:8 * seg + 8])
+            with torch.enable_grad():
+                out = cin
+                for _ in range(spec.segments[seg]):
+                    out = body(out)
+            pairs = [(o, g) for o, g in zip(out, g_carry) if g is not None and o.requires_grad]
+            got = torch.autograd.grad([o for o, _ in pairs], [*cin, *wrt], [g for _, g in pairs],
+                                      allow_unused=True)
+            g_carry = list(got[:8])
+            g_wrt = [a if b is None else b if a is None else a + b for a, b in zip(g_wrt, got[8:])]
+        g_extra = iter(g_wrt)
+        return (None, *g_carry, *(next(g_extra) if t.requires_grad else None for t in extra))
+
+
+def substep_loop_checkpointed(consts, carry, steps: int, dte: float, dt: float, dx: float,
+                              dyn_type: str, p, advance=None, segments=None):
+    """The substep loop through ``SubstepLoop``: gradients flow to the carry,
+    to the planes of ``consts`` the body reads and to the tensor scalars of
+    ``p``, while the forward runs the kernel.
+
+    ``advance(consts, carry, k, dte, dt, dx, dyn_type, p)`` runs one segment
+    of ``k`` substeps. By default it is one launch of the CUDA kernel under
+    the loop's default plan, and ``segments`` the plan's launches, the same
+    launches as the forward-only path. The tests hand in
+    ``substep_loop_reference`` to run the checkpoints and the recompute on
+    the CPU; ``segments`` then defaults to the plan's launches too."""
+    if advance is None:
+        plan = _default_plan(carry, steps, dyn_type)
+        _check_plan(plan, carry, steps, dyn_type)
+        advance = functools.partial(_kernel_segment, plan=plan)
+        segments = plan.launches
+    elif segments is None:
+        ny1, nx1 = carry[0].shape
+        segments = launch_plan(ny1 - 1, nx1 - 1, steps, carry[0].dtype, dyn_type).launches
+    if sum(segments) != steps:
+        raise ValueError(f"substep_loop: segments {segments} are not {steps} substeps")
+    const_names = tuple(n for n in _BODY_CONSTS if isinstance(getattr(consts, n, None), torch.Tensor))
+    params = _param_tensors(p)
+    spec = SimpleNamespace(
+        advance=advance, segments=tuple(segments), dte=dte, dt=dt, dx=dx, dyn_type=dyn_type,
+        p=p, param_paths=tuple(path for path, _ in params), const_names=const_names,
+        consts={n: getattr(consts, n, None) for n in _BODY_CONSTS if n not in const_names},
+    )
+    return SubstepLoop.apply(spec, *carry, *(getattr(consts, n) for n in const_names),
+                             *(t for _, t in params))
 
 
 def _params(ny, nx, steps, dte, dt, dx, dyn_type, p) -> _Params:
     """The kernel's scalars, computed in double as the plain version's
     Python floats are (each rounds to the plane dtype inside the kernel)."""
+    # a scalar that is a tensor (a parameter a caller differentiates) is read
+    # as a float here and nowhere else: its gradient comes from the plain
+    # recompute of SubstepLoop.backward
+    tensors = _param_tensors(p)
+    p = _with_params(p, [path for path, _ in tensors], [float(t) for _, t in tensors])
     bbm, evp = p.bbm, p.evp
     e = bbm.exponent_relaxation_sigma - 1.0
     integer = e == int(e) and 0 <= int(e) <= 8

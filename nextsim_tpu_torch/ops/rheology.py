@@ -22,6 +22,7 @@ from typing import Tuple
 import torch
 
 from nextsim_tpu_torch.core import constants as phys
+from nextsim_tpu_torch.core import ties
 
 
 def rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
@@ -105,7 +106,7 @@ def bbm_update_planes(
     # float32 for heavily damaged low-concentration ice, and the
     # multiplicator below would become 0/0 = NaN
     time_viscous = p.undamaged_time_relaxation_sigma * _fast_pow(
-        torch.clamp(dmg_el, min=1e-8), p.exponent_relaxation_sigma - 1.0
+        ties.maximum(dmg_el, 1e-8), p.exponent_relaxation_sigma - 1.0
     )
 
     # plastic failure folded into the multiplicator (fe.cpp:4189-4210):
@@ -114,10 +115,10 @@ def bbm_update_planes(
         Pmax = _fast_pow(thick, p.exponent_compression_factor) * p.compression_factor * expC
     compressing = sigma_n < 0.0
     # division floors at 1e-15 keep the float32 divisions finite
-    s_mag = torch.clamp(-sigma_n, min=1e-15)
-    s_unyielded = torch.where(compressing, torch.clamp(s_mag - Pmax, min=0.0), s_mag)
-    tv_s = torch.clamp(time_viscous * s_mag, min=1e-15)
-    multiplicator = torch.clamp(tv_s / (tv_s + dt * s_unyielded), max=1.0 - 1e-12)
+    s_mag = ties.maximum(-sigma_n, 1e-15)
+    s_unyielded = torch.where(compressing, ties.maximum(s_mag - Pmax, 0.0), s_mag)
+    tv_s = ties.maximum(time_viscous * s_mag, 1e-15)
+    multiplicator = ties.minimum(tv_s / (tv_s + dt * s_unyielded), 1.0 - 1e-12)
 
     elasticity = p.young * dmg_el
     d0, d1, d2 = p.dunit
@@ -137,8 +138,8 @@ def bbm_update_planes(
     dcrit_num = torch.where(compressive, -p.compr_strength, cohesion)
     dcrit_den = torch.where(
         compressive,
-        torch.clamp(sigma_n, max=-1e-15),
-        torch.clamp(sigma_s + p.tan_phi * sigma_n, min=1e-15),
+        ties.minimum(sigma_n, -1e-15),
+        ties.maximum(sigma_s + p.tan_phi * sigma_n, 1e-15),
     )
     dcrit = dcrit_num / dcrit_den
 
@@ -147,7 +148,7 @@ def bbm_update_planes(
     if rtd_coef is None:
         sqrt_nu_rhoi = math.sqrt(2.0 * (1.0 + p.nu0) * phys.rhoi)
         rtd_coef = torch.sqrt(p.young * expC) / (delta_x * sqrt_nu_rhoi)
-    rtd = rtd_coef * torch.sqrt(torch.clamp(1.0 - damage, min=0.0) + 1e-20)
+    rtd = rtd_coef * torch.sqrt(ties.maximum(1.0 - damage, 0.0) + 1e-20)
     relax = (1.0 - dcrit) * dt * rtd
     relax = torch.where(failing, relax, 0.0)
 
@@ -160,7 +161,7 @@ def bbm_update_planes(
     # --- healing (fe.cpp:4254-4257) ---------------------------------------
     if heal_rate is None:
         heal_rate = rdiv(dt, time_relaxation_damage) * expC
-    damage_new = torch.clamp(damage_new - heal_rate, min=0.0)
+    damage_new = ties.maximum(damage_new - heal_rate, 0.0)
 
     sxx = torch.where(has_ice, sxx, 0.0)
     syy = torch.where(has_ice, syy, 0.0)

@@ -18,6 +18,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from nextsim_tpu_torch.core import ties
+
 
 def pad1(a: torch.Tensor) -> torch.Tensor:
     """Zero-pad a 2-D plane by one on every side (``jnp.pad(a, 1)``)."""
@@ -105,7 +107,7 @@ def neighbor_mean_nodes(u, node_ok) -> torch.Tensor:
     wp = pad1(node_ok)
     num = up[:-2, 1:-1] + up[2:, 1:-1] + up[1:-1, :-2] + up[1:-1, 2:]
     den = wp[:-2, 1:-1] + wp[2:, 1:-1] + wp[1:-1, :-2] + wp[1:-1, 2:]
-    return num / torch.clamp(den, min=1.0)
+    return num / ties.maximum(den, 1.0)
 
 
 def cell_mean_of_nodes(nodal) -> torch.Tensor:
@@ -120,7 +122,7 @@ def node_mean_of_cells(cell_field, cell_weight) -> torch.Tensor:
     finiteelement.cpp:10373-10390)."""
     num = cells_to_node_sum(cell_field * cell_weight)
     den = cells_to_node_sum(cell_weight)
-    return num / torch.clamp(den, min=1e-30)
+    return num / ties.maximum(den, 1e-30)
 
 
 def laplacian_cells(field, mask, dx: float) -> torch.Tensor:

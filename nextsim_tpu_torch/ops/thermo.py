@@ -36,6 +36,7 @@ from typing import Dict
 import torch
 
 from nextsim_tpu_torch.core import constants as phys
+from nextsim_tpu_torch.core import ties
 from nextsim_tpu_torch.model.params_thermo import ThermoParams
 from nextsim_tpu_torch.ops import fsd as fsd_ops
 from nextsim_tpu_torch.ops import stencil
@@ -57,7 +58,7 @@ def _cbrt(x):
 def freezing_point(p: ThermoParams, sss):
     """(reference: fe.cpp freezingPoint)"""
     if p.freezingpoint_type == "unesco":
-        return (-0.0575 + 1.710523e-3 * torch.sqrt(torch.clamp(sss, min=1e-12))
+        return (-0.0575 + 1.710523e-3 * torch.sqrt(ties.maximum(sss, 1e-12))
                 - 2.154996e-4 * sss) * sss
     return -p.freezingpoint_mu * sss
 
@@ -66,7 +67,7 @@ def specific_humidity_air(p: ThermoParams, forcing):
     """Atmosphere specific humidity (reference: fe.cpp:4979-5007,
     scheme ATMOSPHERE): priority sphuma > mixrat > dew point."""
     if forcing.sphuma is not None:
-        return torch.clamp(forcing.sphuma, min=0.0)
+        return ties.maximum(forcing.sphuma, 0.0)
     if forcing.mixrat is not None:
         return forcing.mixrat / (1.0 + forcing.mixrat)
     A, B, C = 7.2e-4, 3.20e-6, 5.9e-10
@@ -151,10 +152,10 @@ def ow_bulk_fluxes(p: ThermoParams, state, forcing, wspeed, sphuma):
     )
     lv = _latent_heat_vap(sst)
     # condensation capped at 0 (frost-flower trick, fe.cpp:5128-5131)
-    qlh = torch.clamp(p.drag_ocean_q * phys.rhoa * lv * wspeed * (sphumw - sphuma), min=0.0)
+    qlh = ties.maximum(p.drag_ocean_q * phys.rhoa * lv * wspeed * (sphumw - sphuma), 0.0)
     evap = qlh / lv
     # Gill (1982)/Smith (1980) momentum drag (fe.cpp:5141-5143)
-    drag_ocean_m = 1e-3 * torch.clamp(0.61 + 0.063 * wspeed, 1.0, 2.0)
+    drag_ocean_m = 1e-3 * ties.clip(0.61 + 0.063 * wspeed, 1.0, 2.0)
     tau_ow = rhoair * drag_ocean_m
 
     qsw = -forcing.qsw_in * (1.0 - p.ocean_albedo)
@@ -183,7 +184,7 @@ def albedo(p: ThermoParams, tsurf, hs, frac_pnd):
     if scheme in (1, 2):
         snow = hs > 0.0
         if scheme == 2:
-            alb_s = torch.clamp(p.alb_ice + (p.alb_sn - p.alb_ice) * hs / 0.2, max=p.alb_sn)
+            alb_s = ties.minimum(p.alb_ice + (p.alb_sn - p.alb_ice) * hs / 0.2, p.alb_sn)
         else:
             alb_s = torch.full_like(hs, p.alb_sn)
         alb = torch.where(snow, alb_s, p.alb_ice)
@@ -244,20 +245,20 @@ def ia_bulk_fluxes(p: ThermoParams, forcing, tsurf, snow_thick, conc, drag_ui, d
         D3 = ch - Bh
         D4 = ch + Bh
         D5 = math.log(D3 / D4)
-        z0 = p.zref_wind * math.exp(-phys.vonKarman / math.sqrt(p.quad_drag_coef_air))
-        lambda_u = math.log(p.zref_wind / z0)
-        lambda_h = math.log(p.zref_wind / z0)
+        z0 = p.zref_wind * ties.scalar("exp", -phys.vonKarman / ties.scalar("sqrt", p.quad_drag_coef_air))
+        lambda_u = ties.scalar("log", p.zref_wind / z0)
+        lambda_h = ties.scalar("log", p.zref_wind / z0)
         linv_range = 1.0 / p.limiting_lengthscale
 
-        ustar = torch.sqrt(torch.clamp(drag_ui, min=1e-12)) * wspeed
+        ustar = torch.sqrt(ties.maximum(drag_ui, 1e-12)) * wspeed
         tvirt = tpot * (1.0 + retv * sphuma)
         mixrat = sphuma / (1.0 - sphuma)
         wtpot = drag_ti * wspeed * (tsurfK - tpot)
         wr = drag_ti * wspeed * (sphumi - sphuma) / ((1.0 - sphumi) * (1.0 - sphuma))
         wtvirt = wtpot * (1.0 + retv * mixrat) + retv * tpot * wr
-        linv = torch.clamp(
+        linv = ties.clip(
             -phys.vonKarman * phys.g * wtvirt
-            / torch.clamp(_fast_pow(ustar, 3) * tvirt, min=1e-15),
+            / ties.maximum(_fast_pow(ustar, 3) * tvirt, 1e-15),
             -linv_range,
             linv_range,
         )
@@ -265,25 +266,25 @@ def ia_bulk_fluxes(p: ThermoParams, forcing, tsurf, snow_thick, conc, drag_ui, d
         zetah = p.zref_temp * linv
 
         # stable branch (fe.cpp:6278-6289)
-        x_s = _cbrt(1.0 + torch.clamp(zetam, min=0.0))
+        x_s = _cbrt(1.0 + ties.maximum(zetam, 0.0))
         psim_s = C1 * (x_s - 1.0) + C2 * (
             2.0 * torch.log((x_s + Bm) * C3)
             - torch.log((x_s * x_s - x_s * Bm + Bm2) * C4)
             + C5 * (torch.atan((2.0 * x_s - Bm) * C6) - C7)
         )
-        zetah_s = torch.clamp(zetah, min=0.0)
+        zetah_s = ties.maximum(zetah, 0.0)
         psih_s = D1 * torch.log(1.0 + ch * zetah_s + zetah_s * zetah_s) + D2 * (
             torch.log((2.0 * zetah_s + D3) / (2.0 * zetah_s + D4)) - D5
         )
         # unstable branch (fe.cpp:6290-6299)
-        x_u = torch.sqrt(torch.sqrt(1.0 - 16.0 * torch.clamp(zetam, max=0.0)))
+        x_u = torch.sqrt(torch.sqrt(1.0 - 16.0 * ties.minimum(zetam, 0.0)))
         psim_u = (
             2.0 * torch.log(0.5 * (1.0 + x_u))
             + torch.log(0.5 * (1.0 + x_u * x_u))
             - 2.0 * torch.atan(x_u)
             + 0.5 * math.pi
         )
-        xh_u = torch.sqrt(torch.sqrt(1.0 - 16.0 * torch.clamp(zetah, max=0.0)))
+        xh_u = torch.sqrt(torch.sqrt(1.0 - 16.0 * ties.minimum(zetah, 0.0)))
         psih_u = 2.0 * torch.log(0.5 * (1.0 + xh_u * xh_u))
 
         stable = linv >= 0.0
@@ -300,15 +301,15 @@ def ia_bulk_fluxes(p: ThermoParams, forcing, tsurf, snow_thick, conc, drag_ui, d
     qlh = drag_ti * rhoair * lsub * wspeed * (sphumi - sphuma)
     dqlhdT = drag_ti * lsub * rhoair * wspeed * dsphumidT
     dqiadT = dqlwdT + dqshdT + dqlhdT
-    subl = torch.clamp(qlh / lsub, min=0.0)  # deposition removed (fe.cpp:6328-6330)
+    subl = ties.maximum(qlh / lsub, 0.0)  # deposition removed (fe.cpp:6328-6330)
 
-    hs = torch.where(conc > 0.0, snow_thick / torch.clamp(conc, min=1e-15), 0.0)
+    hs = torch.where(conc > 0.0, snow_thick / ties.maximum(conc, 1e-15), 0.0)
 
     # pond fraction only counts with a thin (<5 cm water-equivalent) lid
     # (fe.cpp:6340-6349); none on young ice
     frac_pnd = torch.where(
         (pond_fraction > 0.0)
-        & (lid_volume <= 0.05 * torch.clamp(pond_fraction, min=1e-30)),
+        & (lid_volume <= 0.05 * ties.maximum(pond_fraction, 1e-30)),
         pond_fraction,
         0.0,
     )
@@ -355,23 +356,23 @@ def thermo_ice0(p: ThermoParams, dt, conc, voli, vols, snowfall, qia, dqiadT, I,
 
     # conductive flux + surface temperature update (fe.cpp:6899-6910)
     denom = hs + ks * hi / phys.ki
-    denom = torch.clamp(denom, min=1e-10)
+    denom = ties.maximum(denom, 1e-10)
     qic = ks * (tbot - tsurf) / denom * gamma
     tsurf = tsurf + (qic - qia_mod) / (rdiv(ks, denom) + dqiadT)
-    tsurf = torch.where(hs > 0.0, torch.clamp(tsurf, max=0.0), torch.clamp(tsurf, max=tfr_ice))
+    tsurf = torch.where(hs > 0.0, ties.minimum(tsurf, 0.0), ties.minimum(tsurf, tfr_ice))
 
     # --- melt & growth (fe.cpp:6912-6937) ---------------------------------
-    del_hs_mlt = torch.clamp(qia_mod - qic, max=0.0) * dt / qs
+    del_hs_mlt = ties.minimum(qia_mod - qic, 0.0) * dt / qs
     hs = hs + del_hs_mlt - subl * dt / phys.rhos
-    del_ht = torch.clamp(hs, max=0.0) * qs / qi  # leftover energy melts ice
-    hs = torch.clamp(hs, min=0.0)
+    del_ht = ties.minimum(hs, 0.0) * qs / qi  # leftover energy melts ice
+    hs = ties.maximum(hs, 0.0)
     hs = hs + snowfall / phys.rhos * dt
 
     del_hb = (qic - qio) * dt / qi
     del_hi = del_ht + del_hb
     hi = hi + del_hi
-    mlt_hi_top = torch.clamp(del_ht, max=0.0)
-    mlt_hi_bot = torch.clamp(del_hb, max=0.0)
+    mlt_hi_top = ties.minimum(del_ht, 0.0)
+    mlt_hi_bot = ties.minimum(del_hb, 0.0)
 
     # snow-to-ice by flooding (fe.cpp:6939-6948)
     draft = (hi * phys.rhoi + hs * phys.rhos) / phys.rhow
@@ -382,7 +383,7 @@ def thermo_ice0(p: ThermoParams, dt, conc, voli, vols, snowfall, qia, dqiadT, I,
 
     # --- too-thin cleanup (fe.cpp:6950-6969) -------------------------------
     thin = hi < phys.hmin
-    melt_scale = torch.where(del_hi < 0.0, -hi_old / torch.clamp(del_hi, max=-1e-15), 0.0)
+    melt_scale = torch.where(del_hi < 0.0, -hi_old / ties.minimum(del_hi, -1e-15), 0.0)
     mlt_hi_top = torch.where(thin, mlt_hi_top * melt_scale, mlt_hi_top)
     mlt_hi_bot = torch.where(thin, mlt_hi_bot * melt_scale, mlt_hi_bot)
     del_hi_s2i = torch.where(thin, 0.0, del_hi_s2i)
@@ -417,7 +418,7 @@ def thermo_ice0(p: ThermoParams, dt, conc, voli, vols, snowfall, qia, dqiadT, I,
 
 def _layer_evening_t1(tbar, tfr_ice, qi, crho):
     """T1 from the mixed-layer enthalpy (Winton eqs 38-39)."""
-    return (tbar - torch.sqrt(torch.clamp(tbar * tbar - 4.0 * tfr_ice * qi / crho, min=1e-20))) / 2.0
+    return (tbar - torch.sqrt(ties.maximum(tbar * tbar - 4.0 * tfr_ice * qi / crho, 1e-20))) / 2.0
 
 
 def thermo_winton(p: ThermoParams, dt, conc, voli, vols, snowfall, qia, dqiadT, I, subl, tbot,  # noqa: E741
@@ -437,7 +438,7 @@ def thermo_winton(p: ThermoParams, dt, conc, voli, vols, snowfall, qia, dqiadT, 
     hi_old = hi
     hs = torch.where(no_ice, 0.0, vols / safe_conc)
     tsurf = torch.where(no_ice, tfr_ice, tsurf_in)
-    t1 = torch.clamp(torch.where(no_ice, tfr_ice, t1_in), max=-1e-6)  # T1<0 for sqrt/div
+    t1 = ties.minimum(torch.where(no_ice, tfr_ice, t1_in), -1e-6)  # T1<0 for sqrt/div
     t2 = torch.where(no_ice, tfr_ice, t2_in)
 
     tfr_surf = torch.where(hs > 0.0, 0.0, torch.full_like(hs, tfr_ice))
@@ -459,16 +460,16 @@ def thermo_winton(p: ThermoParams, dt, conc, voli, vols, snowfall, qia, dqiadT, 
     )
     c1 = hi * qi * tfr_ice / (2.0 * dt)
 
-    t1_new = -(b1 + torch.sqrt(torch.clamp(b1 * b1 - 4.0 * a1 * c1, min=1e-20))) / (2.0 * a1)
+    t1_new = -(b1 + torch.sqrt(ties.maximum(b1 * b1 - 4.0 * a1 * c1, 1e-20))) / (2.0 * a1)
     tsurf_new = (k12 * t1_new - A) / (k12 + B)
 
     # surface-melt recalculation (eqs 19-22; fe.cpp:6684-6698)
     melting = tsurf_new > tfr_surf
     a1m = a1 + k12 - k12 * B / (k12 + B)
     b1m = b1 - k12 * tfr_surf - A * k12 / (k12 + B)
-    t1_melt = -(b1m + torch.sqrt(torch.clamp(b1m * b1m - 4.0 * a1m * c1, min=1e-20))) / (2.0 * a1m)
-    msurf = torch.clamp(k12 * (t1_melt - tfr_surf) - (A + B * tfr_surf), min=0.0)
-    t1 = torch.clamp(torch.where(melting, t1_melt, t1_new), max=-1e-6)
+    t1_melt = -(b1m + torch.sqrt(ties.maximum(b1m * b1m - 4.0 * a1m * c1, 1e-20))) / (2.0 * a1m)
+    msurf = ties.maximum(k12 * (t1_melt - tfr_surf) - (A + B * tfr_surf), 0.0)
+    t1 = ties.minimum(torch.where(melting, t1_melt, t1_new), -1e-6)
     tsurf = torch.where(melting, tfr_surf, tsurf_new)
     msurf = torch.where(melting, msurf, 0.0)
 
@@ -493,20 +494,20 @@ def thermo_winton(p: ThermoParams, dt, conc, voli, vols, snowfall, qia, dqiadT, 
     h1 = torch.where(c2_, h1 - (s - hs * phys.rhos) / phys.rhoi, torch.where(c3_ | c4_, 0.0, h1))
     hs = torch.where(c1_, hs - s / phys.rhos, 0.0)
     h2 = torch.where(c4_, 0.0, h2)
-    mlt_hi_top = torch.clamp(h1 + h2 - hi_old, min=0.0)  # (fe.cpp:6742-6743)
+    mlt_hi_top = ties.maximum(h1 + h2 - hi_old, 0.0)  # (fe.cpp:6742-6743)
 
     # bottom melt/growth (eqs 23-26, 31-34; fe.cpp:6745-6775)
     mbot = qio - 4.0 * phys.ki * (tbot - t2) / hi
     growth = mbot <= 0.0
     ebot = crho * (tbot - tfr_ice) - qi
     delh2_g = mbot * dt / ebot
-    t2_g = (delh2_g * tbot + h2 * t2) / torch.clamp(delh2_g + h2, min=1e-12)
+    t2_g = (delh2_g * tbot + h2 * t2) / ties.maximum(delh2_g + h2, 1e-12)
     # melt branch
     delh2_m = -torch.minimum(-mbot * dt / e2, h2)
-    delh1_m = -torch.minimum(torch.clamp(-(mbot * dt + e2 * h2) / e1, min=0.0), h1)
-    del_hs_mlt_b = -torch.minimum(torch.clamp((mbot * dt + e2 * h2 + e1 * h1) / qs, min=0.0), hs)
+    delh1_m = -torch.minimum(ties.maximum(-(mbot * dt + e2 * h2) / e1, 0.0), h1)
+    del_hs_mlt_b = -torch.minimum(ties.maximum((mbot * dt + e2 * h2 + e1 * h1) / qs, 0.0), hs)
     all_melts_b = (h2 + h1 + hs - delh2_m - delh1_m - del_hs_mlt_b) <= 0.0
-    qio_refund_b = torch.clamp(mbot * dt - qs * hs + e1 * h1 + e2 * h2, min=0.0) / dt
+    qio_refund_b = ties.maximum(mbot * dt - qs * hs + e1 * h1 + e2 * h2, 0.0) / dt
     qio = torch.where((~growth) & all_melts_b, qio - qio_refund_b, qio)
 
     t2 = torch.where(growth, t2_g, t2)
@@ -519,11 +520,11 @@ def thermo_winton(p: ThermoParams, dt, conc, voli, vols, snowfall, qia, dqiadT, 
     # surface melt (eqs 27-30; fe.cpp:6777-6790). NB the reference adds the
     # accumulated del_hs_mlt (bottom+surface) to hs here — kept for parity.
     dhs_s = -torch.minimum(msurf * dt / qs, hs)
-    delh1_s = -torch.minimum(torch.clamp(-(msurf * dt - qs * hs) / e1, min=0.0), h1)
-    delh2_s = -torch.minimum(torch.clamp(-(msurf * dt - qs * hs + e1 * h1) / e2, min=0.0), h2)
+    delh1_s = -torch.minimum(ties.maximum(-(msurf * dt - qs * hs) / e1, 0.0), h1)
+    delh2_s = -torch.minimum(ties.maximum(-(msurf * dt - qs * hs + e1 * h1) / e2, 0.0), h2)
     del_hs_mlt = del_hs_mlt + dhs_s
     all_melts_s = (h2 + h1 + hs - delh2_s - delh1_s - del_hs_mlt) <= 0.0
-    qio_refund_s = torch.clamp(msurf * dt - qs * hs + e1 * h1 + e2 * h2, min=0.0) / dt
+    qio_refund_s = ties.maximum(msurf * dt - qs * hs + e1 * h1 + e2 * h2, 0.0) / dt
     qio = torch.where(all_melts_s, qio - qio_refund_s, qio)
     hs = hs + del_hs_mlt
     h1 = h1 + delh1_s
@@ -536,12 +537,12 @@ def thermo_winton(p: ThermoParams, dt, conc, voli, vols, snowfall, qia, dqiadT, 
     if p.flooding:
         freeboard = (hi * (phys.rhow - phys.rhoi) - hs * phys.rhos) / phys.rhow
         flood = freeboard < 0.0
-        hs = torch.where(flood, hs + torch.clamp(freeboard * phys.rhoi / phys.rhos, max=0.0), hs)
-        delh1_f = torch.where(flood, torch.clamp(-freeboard, min=0.0), 0.0)
-        f1 = 1.0 - delh1_f / torch.clamp(delh1_f + h1, min=1e-12)
+        hs = torch.where(flood, hs + ties.minimum(freeboard * phys.rhoi / phys.rhos, 0.0), hs)
+        delh1_f = torch.where(flood, ties.maximum(-freeboard, 0.0), 0.0)
+        f1 = 1.0 - delh1_f / ties.maximum(delh1_f + h1, 1e-12)
         tbar = f1 * (t1 + rdiv(qi * tfr_ice, crho * t1)) + (1.0 - f1) * tfr_ice
         t1_f = _layer_evening_t1(tbar, tfr_ice, qi, crho)
-        t1 = torch.clamp(torch.where(flood, t1_f, t1), max=-1e-6)
+        t1 = ties.minimum(torch.where(flood, t1_f, t1), -1e-6)
         h1 = h1 + delh1_f
         del_hi_s2i = delh1_f
 
@@ -549,13 +550,13 @@ def thermo_winton(p: ThermoParams, dt, conc, voli, vols, snowfall, qia, dqiadT, 
 
     # even out the two layers (eqs 38-40; fe.cpp:6810-6838)
     lower_bigger = h2 > h1
-    f1a = h1 / torch.clamp(hi, min=1e-12) * 2.0
+    f1a = h1 / ties.maximum(hi, 1e-12) * 2.0
     tbar_a = f1a * (t1 + rdiv(qi * tfr_ice, crho * t1)) + (1.0 - f1a) * t2
     t1_a = _layer_evening_t1(tbar_a, tfr_ice, qi, crho)
-    f1b = (2.0 * h1 - hi) / torch.clamp(hi, min=1e-12)
+    f1b = (2.0 * h1 - hi) / ties.maximum(hi, 1e-12)
     t2_b = f1b * (t1 + rdiv(qi * tfr_ice, crho * t1)) + (1.0 - f1b) * t2
     has_hi = hi > 0.0
-    t1 = torch.clamp(torch.where(lower_bigger, t1_a, t1), max=-1e-6)
+    t1 = ties.minimum(torch.where(lower_bigger, t1_a, t1), -1e-6)
     t2 = torch.where((~lower_bigger) & has_hi, t2_b, t2)
     # melt from both if T2 drifted above freezing (fe.cpp:6824-6837). The
     # denominator crosses zero near T1 ~ Tfr/2, a window float32 hits, so
@@ -585,7 +586,7 @@ def thermo_winton(p: ThermoParams, dt, conc, voli, vols, snowfall, qia, dqiadT, 
     del_hi = torch.where(bad, -hi_old, del_hi)
     thin = (hi < phys.hmin) | bad
     qio = torch.where(thin, qio - (-qs * hs + (e1 + e2) * hi / 2.0) / dt, qio)
-    melt_scale = torch.where(del_hi < 0.0, -hi_old / torch.clamp(del_hi, max=-1e-15), 0.0)
+    melt_scale = torch.where(del_hi < 0.0, -hi_old / ties.minimum(del_hi, -1e-15), 0.0)
     mlt_hi_top = torch.where(thin, mlt_hi_top * melt_scale, mlt_hi_top)
     mlt_hi_bot = torch.where(thin, mlt_hi_bot * melt_scale, mlt_hi_bot)
     del_hi_s2i = torch.where(thin, 0.0, del_hi_s2i)
@@ -639,28 +640,28 @@ def melt_ponds(p: ThermoParams, dt, conc, thick, tice0, hi, hs, mlt_hi_top, del_
     flush = (
         (pond_volume <= 0.0)
         | (conc <= conc_min)
-        | (torch.where(conc > 0.0, thick / torch.clamp(conc, min=1e-15), 0.0) <= h_ice_min)
+        | (torch.where(conc > 0.0, thick / ties.maximum(conc, 1e-15), 0.0) <= h_ice_min)
     )
 
-    pond_fraction = torch.sqrt(torch.clamp(pond_volume, min=1e-20) / p.meltponds_dep2frac)
+    pond_fraction = torch.sqrt(ties.maximum(pond_volume, 1e-20) / p.meltponds_dep2frac)
     pond_fraction = torch.minimum(pond_fraction, 1.0 - hs / (hs + 0.2))
     pond_depth = torch.minimum(p.meltponds_dep2frac * pond_fraction, 0.9 * hi)
     pond_volume = pond_depth * pond_fraction
-    pond_depth = torch.clamp(pond_depth, min=0.05)
+    pond_depth = ties.maximum(pond_depth, 0.05)
     pond_fraction = torch.minimum(
-        pond_fraction, (lid_volume + pond_volume) / torch.clamp(pond_depth, min=1e-15)
+        pond_fraction, (lid_volume + pond_volume) / ties.maximum(pond_depth, 1e-15)
     )
 
     # lid growth/melt (fe.cpp:6596-6616)
     has_lid = (lid_volume > 0.0) & (pond_fraction > 1e-11)
     tpond = tfr_ice
-    lid_thickness = torch.clamp(
-        lid_volume * w2i / torch.clamp(pond_fraction, min=1e-15), min_lid, max_lid
+    lid_thickness = ties.clip(
+        lid_volume * w2i / ties.maximum(pond_fraction, 1e-15), min_lid, max_lid
     )
     qic = (tpond - tice0) / lid_thickness * phys.ki
-    del_lid_thick = (torch.clamp(qia - qic, max=0.0) + qic) * dt / (phys.rhoi * phys.Lf)
+    del_lid_thick = (ties.minimum(qia - qic, 0.0) + qic) * dt / (phys.rhoi * phys.Lf)
     del_lid_haslid = torch.maximum(del_lid_thick * i2w * pond_fraction, -lid_volume)
-    del_lid_forms = dt * torch.clamp(qia, min=0.0) / (phys.rhoi * phys.Lf) * i2w
+    del_lid_forms = dt * ties.maximum(qia, 0.0) / (phys.rhoi * phys.Lf) * i2w
     del_lid = torch.where(has_lid, del_lid_haslid, torch.where(qia > 0.0, del_lid_forms, 0.0))
 
     lid_volume = lid_volume + del_lid
@@ -668,7 +669,7 @@ def melt_ponds(p: ThermoParams, dt, conc, thick, tice0, hi, hs, mlt_hi_top, del_
 
     # remove lid if pond frozen solid or lid too thick (fe.cpp:6620-6629)
     kill = (pond_volume <= 0.0) | (
-        lid_volume * w2i / torch.clamp(pond_fraction, min=1e-15) >= max_lid
+        lid_volume * w2i / ties.maximum(pond_fraction, 1e-15) >= max_lid
     )
     dead = flush | kill
     pond_volume = torch.where(dead, 0.0, pond_volume)
@@ -742,7 +743,7 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
     # D_pond_fraction from the last step; recomputed below)
     pond_fraction_prev = torch.where(
         state.pond_volume > 0.0,
-        torch.sqrt(torch.clamp(state.pond_volume, min=1e-20) / p.meltponds_dep2frac),
+        torch.sqrt(ties.maximum(state.pond_volume, 1e-20) / p.meltponds_dep2frac),
         0.0,
     )
 
@@ -780,7 +781,7 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
         snowfall = forcing.snowfall
     else:
         snowfall = torch.where(forcing.tair < 0.0, forcing.precip, 0.0)
-    snowfall = torch.clamp(snowfall, min=0.0)
+    snowfall = ties.maximum(snowfall, 0.0)
 
     mld = forcing.mld if forcing.mld is not None else torch.full_like(old_conc, p.constant_mld)
 
@@ -903,7 +904,7 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
     elif p.newice_type == 2:
         del_c = torch.where(
             hi_old > 0.0,
-            newice * p.PhiF / torch.clamp(hi_old, min=1e-15),
+            newice * p.PhiF / ties.maximum(hi_old, 1e-15),
             torch.where(newice > 0.0, torch.ones_like(newice), 0.0),
         )
     elif p.newice_type == 3:
@@ -919,19 +920,19 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
         thin_y = has_young & (h_young < p.h_young_min * conc_young)
         conc_young = torch.where(thin_y, h_young / p.h_young_min, conc_young)
         # young ice thicker than the sharp max: promote to old ice
-        hi_y = h_young / torch.clamp(conc_young, min=1e-15)
+        hi_y = h_young / ties.maximum(conc_young, 1e-15)
         thick_y = has_young & (~thin_y) & (hi_y > p.h_young_max_sharp)
-        hs_y = torch.clamp(hs_young / torch.clamp(conc_young, min=1e-15), min=0.0)
-        tmp_c = conc_young * (p.h_young_max_sharp - p.h_young_min) / torch.clamp(
-            hi_y - p.h_young_min, min=1e-15
+        hs_y = ties.maximum(hs_young / ties.maximum(conc_young, 1e-15), 0.0)
+        tmp_c = conc_young * (p.h_young_max_sharp - p.h_young_min) / ties.maximum(
+            hi_y - p.h_young_min, 1e-15
         )
-        del_c = torch.where(thick_y, torch.clamp(conc_young - tmp_c, min=0.0), 0.0)
+        del_c = torch.where(thick_y, ties.maximum(conc_young - tmp_c, 0.0), 0.0)
         conc_young2 = torch.where(thick_y, tmp_c, conc_young)
         tmp_v = conc_young2 * p.h_young_max_sharp
-        newice = torch.where(thick_y, torch.clamp(h_young - tmp_v, min=0.0), 0.0)
+        newice = torch.where(thick_y, ties.maximum(h_young - tmp_v, 0.0), 0.0)
         h_young = torch.where(thick_y, tmp_v, h_young)
         tmp_s = conc_young2 * hs_y
-        newsnow = torch.where(thick_y, torch.clamp(hs_young - tmp_s, min=0.0), 0.0)
+        newsnow = torch.where(thick_y, ties.maximum(hs_young - tmp_s, 0.0), 0.0)
         hs_young = torch.where(thick_y, tmp_s, hs_young)
         conc_young = conc_young2
         # no room for young ice at all: dump it into old ice (fe.cpp:5543-5551)
@@ -952,14 +953,14 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
     melting = del_hi < 0.0
     if p.melt_type == 1:
         del_c_melt = torch.where(
-            conc < 1.0, del_hi * conc * p.PhiM / torch.clamp(hi_old, min=1e-15), 0.0
+            conc < 1.0, del_hi * conc * p.PhiM / ties.maximum(hi_old, 1e-15), 0.0
         )
         del_c = del_c + torch.where(melting, del_c_melt, 0.0)
     elif p.melt_type == 2:
         has_hi = hi > 0.0
         lat_melt = (
-            p.PhiM * (1.0 - conc) * torch.clamp(qow, max=0.0) * ddt
-            / torch.clamp(hi * qi + hs * qs, min=1e-15)
+            p.PhiM * (1.0 - conc) * ties.minimum(qow, 0.0) * ddt
+            / ties.maximum(hi * qi + hs * qs, 1e-15)
         )
         del_c = del_c + torch.where(melting & has_hi, lat_melt, 0.0)
         qow = torch.where(melting & has_hi, qow * (1.0 - p.PhiM), qow)
@@ -974,7 +975,7 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
             fsd_params, fsd_bins,
         )
         del_c = del_c + dcf
-        conc_young = torch.clamp(conc_young + dcy, 0.0, 1.0)
+        conc_young = ties.clip(conc_young + dcy, 0.0, 1.0)
     else:
         raise ValueError(f"melt_type {p.melt_type}")
 
@@ -996,14 +997,14 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
     use_young_in_reset = p.include_young_ice and p.reset_by_date
     young_in_reset = p.use_young_ice and use_young_in_reset
     if day_end:
-        conc_summer_cand = conc + torch.clamp(del_c, max=0.0)
-        thick_summer_cand = state.thick + torch.clamp(del_vi, max=0.0)
+        conc_summer_cand = conc + ties.minimum(del_c, 0.0)
+        thick_summer_cand = state.thick + ties.minimum(del_vi, 0.0)
         if young_in_reset:
             conc_summer_cand = conc_summer_cand + conc_young
             thick_summer_cand = thick_summer_cand + h_young
-        conc_summer = torch.where(melting_day, torch.clamp(conc_summer_cand, 0.0, 1.0),
+        conc_summer = torch.where(melting_day, ties.clip(conc_summer_cand, 0.0, 1.0),
                                   state.conc_summer)
-        thick_summer = torch.where(melting_day, torch.clamp(thick_summer_cand, min=0.0),
+        thick_summer = torch.where(melting_day, ties.maximum(thick_summer_cand, 0.0),
                                    state.thick_summer)
     else:
         conc_summer, thick_summer = state.conc_summer, state.thick_summer
@@ -1013,19 +1014,19 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
     # =====================================================================
     conc = conc + del_c
     ok = conc >= phys.cmin
-    hi_cons = (hi * old_conc + newice) / torch.clamp(conc, min=phys.cmin)
+    hi_cons = (hi * old_conc + newice) / ties.maximum(conc, phys.cmin)
     hi = torch.where(ok, hi_cons, hi)
     shrunk = del_c < 0.0
     qow = torch.where(ok & shrunk, qow - del_c * hs * qs / ddt, qow)
-    hs_cons = (hs * old_conc + newsnow) / torch.clamp(conc, min=phys.cmin)
+    hs_cons = (hs * old_conc + newsnow) / ties.maximum(conc, phys.cmin)
     hs = torch.where(ok & (~shrunk), hs_cons, hs)
 
     if p.thermo_type == "winton":
         # mix new ice into both layers (fe.cpp:5725-5732; Winton eqs 38-39)
         thick_before = state.thick + thick_dump
-        f1 = thick_before / torch.clamp(thick_before + newice, min=1e-15)
+        f1 = thick_before / ties.maximum(thick_before + newice, 1e-15)
         mu_si_lf_c = p.freezingpoint_mu * phys.si * phys.Lf / phys.C
-        t1_safe = torch.clamp(t1_new, max=-1e-6)
+        t1_safe = ties.minimum(t1_new, -1e-6)
         tbar = f1 * (t1_safe - rdiv(mu_si_lf_c, t1_safe)) + (1.0 - f1) * tfrw
         t1_mixed = (tbar - torch.sqrt(tbar * tbar + 4.0 * mu_si_lf_c + 1e-20)) / 2.0
         t2_mixed = f1 * t2_new + (1.0 - f1) * tfrw
@@ -1060,7 +1061,7 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
     # =====================================================================
     # 8) slab ocean (fe.cpp:5803-5847)
     # =====================================================================
-    rain_on_ice = torch.clamp(forcing.precip - snowfall, min=0.0)
+    rain_on_ice = ties.maximum(forcing.precip - snowfall, 0.0)
     rain = old_ow_fraction * forcing.precip + old_conc_tot * rain_on_ice
     emp = ow["evap"] * old_ow_fraction - rain
 
@@ -1083,8 +1084,8 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
     denom = mld * phys.rhow - del_vi * phys.rhoi - (
         del_vs_mlt * phys.rhos + (emp - fdw) * ddt
     )
-    denom = torch.clamp(denom, min=phys.rhow)
-    si_eff = torch.clamp(sss, max=phys.si)
+    denom = ties.maximum(denom, phys.rhow)
+    si_eff = ties.minimum(sss, phys.si)
     delsss = (
         (sss - si_eff) * phys.rhoi * del_vi
         + sss * (del_vs_mlt * phys.rhos + (emp - fdw) * ddt)
@@ -1094,7 +1095,7 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
 
     # ridge ratio conservation on growth (fe.cpp:5849-5852)
     ridge_ratio = torch.where(
-        thick > old_vol, ridge_ratio * old_vol / torch.clamp(thick, min=1e-15), ridge_ratio
+        thick > old_vol, ridge_ratio * old_vol / ties.maximum(thick, 1e-15), ridge_ratio
     )
 
     # =====================================================================
@@ -1104,13 +1105,13 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
     if p.temp_dep_healing:
         tbot_h = freezing_point(p, sss)
         if p.thermo_type == "zero-layer":
-            Ch = phys.ki * snow_thick / (p.snow_cond * torch.clamp(thick, min=1e-15))
-            deltaT = torch.clamp(tbot_h - tice0_new, min=1e-36) / (1.0 + Ch)
+            Ch = phys.ki * snow_thick / (p.snow_cond * ties.maximum(thick, 1e-15))
+            deltaT = ties.maximum(tbot_h - tice0_new, 1e-36) / (1.0 + Ch)
         else:
-            Ch = phys.ki * snow_thick / (p.snow_cond * torch.clamp(thick, min=1e-15) / 4.0)
-            deltaT = torch.clamp(tbot_h + Ch * (tbot_h - t1_new) - tice0_new, min=1e-36) / (1.0 + Ch)
-        trd = torch.clamp(
-            rdiv(p.time_relaxation_damage * p.deltaT_relaxation_damage, deltaT), min=ddt
+            Ch = phys.ki * snow_thick / (p.snow_cond * ties.maximum(thick, 1e-15) / 4.0)
+            deltaT = ties.maximum(tbot_h + Ch * (tbot_h - t1_new) - tice0_new, 1e-36) / (1.0 + Ch)
+        trd = ties.maximum(
+            rdiv(p.time_relaxation_damage * p.deltaT_relaxation_damage, deltaT), ddt
         )
         time_relaxation_damage = torch.where(thick > 0.0, trd, 1e36)
 
@@ -1146,8 +1147,8 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
     sialb = old_conc * ia["albedo"]
     if p.use_young_ice:
         sialb = sialb + old_conc_young * ia_y["albedo"]
-    diag["albedo"] = sialb + torch.clamp(old_ow_fraction, min=0.0) * p.ocean_albedo
-    diag["sialb"] = torch.where(old_conc_tot > 0.0, sialb / torch.clamp(old_conc_tot, min=1e-15), 0.0)
+    diag["albedo"] = sialb + ties.maximum(old_ow_fraction, 0.0) * p.ocean_albedo
+    diag["sialb"] = torch.where(old_conc_tot > 0.0, sialb / ties.maximum(old_conc_tot, 1e-15), 0.0)
     diag["pond_fraction"] = pond_fraction
 
     # =====================================================================
@@ -1158,12 +1159,12 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
     if _on(tinfo, "is_0915"):
         fyi = zeros()
     else:
-        fyi = torch.clamp(state.fyi_fraction + del_c, 0.0, 1.0)
+        fyi = ties.clip(state.fyi_fraction + del_c, 0.0, 1.0)
 
-    w_age = torch.where(old_conc <= 0.0, 0.0, torch.clamp(old_conc / torch.clamp(conc, min=1e-15), max=1.0))
-    age_det = w_age * (state.age_det + dt) + torch.clamp((1.0 - w_age) * dt, min=0.0)
-    w_agev = torch.where(old_vol <= 0.0, 0.0, torch.clamp(old_vol / torch.clamp(thick, min=1e-15), max=1.0))
-    age = w_agev * (state.age + dt) + torch.clamp((1.0 - w_agev) * dt, min=0.0)
+    w_age = torch.where(old_conc <= 0.0, 0.0, ties.minimum(old_conc / ties.maximum(conc, 1e-15), 1.0))
+    age_det = w_age * (state.age_det + dt) + ties.maximum((1.0 - w_age) * dt, 0.0)
+    w_agev = torch.where(old_vol <= 0.0, 0.0, ties.minimum(old_vol / ties.maximum(thick, 1e-15), 1.0))
+    age = w_agev * (state.age + dt) + ties.maximum((1.0 - w_agev) * dt, 0.0)
 
     # MYI reset logic (fe.cpp:6040-6106)
     conc_myi, thick_myi = state.conc_myi, state.thick_myi
@@ -1179,8 +1180,8 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
     if _on(tinfo, "is_0801"):
         ctot_aug = conc + conc_young if p.use_young_ice else conc
         freeze_onset = torch.where(ctot_aug == 0.0, torch.ones_like(conc), 0.0)
-        conc_summer = torch.clamp(conc if young_tot is None else conc + conc_young, 0.0, 1.0)
-        thick_summer = torch.clamp(thick + h_young if young_in_reset else thick, min=0.0)
+        conc_summer = ties.clip(conc if young_tot is None else conc + conc_young, 0.0, 1.0)
+        thick_summer = ties.maximum(thick + h_young if young_in_reset else thick, 0.0)
     freeze_onset = torch.round(freeze_onset)
 
     c_myi_max = conc + conc_young if young_in_reset else conc
@@ -1188,28 +1189,28 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
 
     old_conc_myi, old_thick_myi = conc_myi, thick_myi
     if p.reset_by_date:
-        conc_myi_reset = torch.clamp(c_myi_max, 0.0, 1.0)
-        thick_myi_reset = torch.clamp(v_myi_max, min=0.0)
+        conc_myi_reset = ties.clip(c_myi_max, 0.0, 1.0)
+        thick_myi_reset = ties.maximum(v_myi_max, 0.0)
     else:
-        conc_myi_reset = torch.clamp(
+        conc_myi_reset = ties.clip(
             torch.minimum(c_myi_max, torch.maximum(conc_summer, conc_myi)), 0.0, 1.0
         )
-        thick_myi_reset = torch.clamp(
-            torch.minimum(v_myi_max, torch.maximum(thick_summer, thick_myi)), min=0.0
+        thick_myi_reset = ties.maximum(
+            torch.minimum(v_myi_max, torch.maximum(thick_summer, thick_myi)), 0.0
         )
 
     # melt-only myi decay on non-reset days (fe.cpp:6090-6118)
     some_melt = (thick < old_vol) & (old_conc > 0.0) & (old_vol > 0.0)
     if p.equal_melting:
-        del_c_ratio = torch.clamp(conc / torch.clamp(old_conc, min=1e-15), max=1.0)
-        del_v_ratio = torch.clamp(thick / torch.clamp(old_vol, min=1e-15), max=1.0)
-        dci = torch.clamp(conc_myi * (del_c_ratio - 1.0), max=0.0)
-        dvi = torch.clamp(thick_myi * (del_v_ratio - 1.0), max=0.0)
+        del_c_ratio = ties.minimum(conc / ties.maximum(old_conc, 1e-15), 1.0)
+        del_v_ratio = ties.minimum(thick / ties.maximum(old_vol, 1e-15), 1.0)
+        dci = ties.minimum(conc_myi * (del_c_ratio - 1.0), 0.0)
+        dvi = ties.minimum(thick_myi * (del_v_ratio - 1.0), 0.0)
     else:
         dci = dvi = zeros()
-    conc_myi_melt = torch.clamp(conc_myi + torch.where(some_melt, dci, 0.0), min=0.0)
+    conc_myi_melt = ties.maximum(conc_myi + torch.where(some_melt, dci, 0.0), 0.0)
     conc_myi_melt = torch.minimum(conc_myi_melt, torch.where(some_melt, c_myi_max, math.inf))
-    thick_myi_melt = torch.clamp(thick_myi + torch.where(some_melt, dvi, 0.0), min=0.0)
+    thick_myi_melt = ties.maximum(thick_myi + torch.where(some_melt, dvi, 0.0), 0.0)
     thick_myi_melt = torch.minimum(thick_myi_melt, torch.where(some_melt, v_myi_max, math.inf))
 
     if isinstance(reset_myi, bool):  # reset by date: one host flag
@@ -1249,19 +1250,19 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
         young_updates = dict(
             h_young=h_young * mask,
             hs_young=hs_young * mask,
-            conc_young=torch.clamp(conc_young, 0.0, 1.0) * mask,
+            conc_young=ties.clip(conc_young, 0.0, 1.0) * mask,
             tsurf_young=tsurf_young_new,
             drag_ui_young=ia_y["drag_ui"],
             drag_ti_young=ia_y["drag_ti"],
         )
 
     state = state.replace(
-        conc=torch.clamp(conc, 0.0, 1.0) * mask,
-        thick=torch.clamp(thick, min=0.0) * mask,
-        snow_thick=torch.clamp(snow_thick, min=0.0) * mask,
+        conc=ties.clip(conc, 0.0, 1.0) * mask,
+        thick=ties.maximum(thick, 0.0) * mask,
+        snow_thick=ties.maximum(snow_thick, 0.0) * mask,
         tice=torch.stack([tice0_new, t1_new, t2_new]),
         sst=sst,
-        sss=torch.clamp(sss, min=0.0),
+        sss=ties.maximum(sss, 0.0),
         ridge_ratio=ridge_ratio,
         fyi_fraction=fyi,
         age_det=age_det,
@@ -1302,7 +1303,7 @@ def ow_bulk_fluxes_aerobulk(p: ThermoParams, state, forcing, wspeed, sphuma,
     sstK = sst + phys.tfrwK
     sphumw = 0.98 * specific_humidity_water(sst)  # salinity reduction factor
     rhoair = air_density(forcing.mslp, forcing.tair, sphuma)
-    u = torch.clamp(wspeed, min=0.1)
+    u = ties.maximum(wspeed, 0.1)
 
     scales = aerobulk.turbulent_scales(
         scheme, u, sst, forcing.tair, sphuma, sphumw,
@@ -1312,7 +1313,7 @@ def ow_bulk_fluxes_aerobulk(p: ThermoParams, state, forcing, wspeed, sphuma,
 
     qsh = -rhoair * phys.cpa * ustar * tstar
     lv = _latent_heat_vap(sst)
-    qlh = torch.clamp(-rhoair * lv * ustar * qstar, min=0.0)
+    qlh = ties.maximum(-rhoair * lv * ustar * qstar, 0.0)
     evap = qlh / lv
     tau_ow = rhoair * _fast_pow(ustar / u, 2)  # rho * Cd
 

@@ -22,6 +22,7 @@ import dataclasses
 import torch
 
 from nextsim_tpu_torch.core import constants as phys
+from nextsim_tpu_torch.core import ties
 from nextsim_tpu_torch.ops import advection, stencil
 from nextsim_tpu_torch.ops import fsd as fsd_ops
 from nextsim_tpu_torch.ops.rheology import rdiv
@@ -103,7 +104,7 @@ def transport_and_ridge(state, grid_arrays, dt: float, p: TransportParams):
     age_r = cons(state.age * old_thick)
     mu_si_lf_c = p.freezingpoint_mu * phys.si * phys.Lf / phys.C
     t1 = state.tice[1]
-    enth_density = (t1 - rdiv(mu_si_lf_c, torch.clamp(t1, max=-1e-12))) * old_thick
+    enth_density = (t1 - rdiv(mu_si_lf_c, ties.minimum(t1, -1e-12))) * old_thick
     enth_r = cons(enth_density)
     t2_r = cons(state.tice[2] * old_thick)
 
@@ -113,19 +114,19 @@ def transport_and_ridge(state, grid_arrays, dt: float, p: TransportParams):
     tfr_ice = -p.freezingpoint_mu * phys.si
     has_c = conc > 1e-6
     has_h = thick > 1e-6
-    age_det = torch.where(has_c, age_det_r / torch.clamp(conc, min=1e-6), 0.0)
-    age = torch.where(has_h, age_r / torch.clamp(thick, min=1e-6), 0.0)
-    enth = enth_r / torch.clamp(thick, min=1e-6)
+    age_det = torch.where(has_c, age_det_r / ties.maximum(conc, 1e-6), 0.0)
+    age = torch.where(has_h, age_r / ties.maximum(thick, 1e-6), 0.0)
+    enth = enth_r / ties.maximum(thick, 1e-6)
     t1_new = 0.5 * (enth - torch.sqrt(enth * enth + 4.0 * mu_si_lf_c))
-    t1_new = torch.clamp(torch.where(has_h, t1_new, tfr_ice), -100.0, tfr_ice)
-    t2_new = torch.where(has_h, t2_r / torch.clamp(thick, min=1e-6), tfr_ice)
-    t2_new = torch.clamp(t2_new, -100.0, 0.0)
+    t1_new = ties.clip(torch.where(has_h, t1_new, tfr_ice), -100.0, tfr_ice)
+    t2_new = torch.where(has_h, t2_r / ties.maximum(thick, 1e-6), tfr_ice)
+    t2_new = ties.clip(t2_new, -100.0, 0.0)
 
     # ---- 2) intensive tracers -------------------------------------------
-    damage = torch.clamp(intens(state.damage), 0.0, 1.0)
-    ridge_ratio = torch.clamp(intens(state.ridge_ratio), 0.0, 1.0)
-    t0_new = torch.clamp(intens(state.tice[0]), max=0.0)
-    tsurf_young = torch.clamp(intens(state.tsurf_young), max=0.0)
+    damage = ties.clip(intens(state.damage), 0.0, 1.0)
+    ridge_ratio = ties.clip(intens(state.ridge_ratio), 0.0, 1.0)
+    t0_new = ties.minimum(intens(state.tice[0]), 0.0)
+    tsurf_young = ties.minimum(intens(state.tsurf_young), 0.0)
     sst = intens(state.sst)
     sss = intens(state.sss)
     sxx = intens(state.sigma[0])
@@ -140,7 +141,7 @@ def transport_and_ridge(state, grid_arrays, dt: float, p: TransportParams):
 
     # ---- 3) mechanical redistribution (reference: fe.cpp:4032-4115) ------
     conc_before = conc
-    open_water = torch.clamp(1.0 - conc - conc_young, 0.0, 1.0)
+    open_water = ties.clip(1.0 - conc - conc_young, 0.0, 1.0)
 
     newice = torch.zeros_like(conc)
     newsnow = torch.zeros_like(conc)
@@ -149,14 +150,14 @@ def transport_and_ridge(state, grid_arrays, dt: float, p: TransportParams):
 
     if p.use_young_ice:
         has_young = conc_young > 0.0
-        new_conc_young = torch.clamp(1.0 - conc - open_water, 0.0, 1.0)
+        new_conc_young = ties.clip(1.0 - conc - open_water, 0.0, 1.0)
         ridging_young = (
             has_young
             & (conc > p.min_c)
             & (thick > p.min_h)
             & (new_conc_young < conc_young)
         )
-        ratio = new_conc_young / torch.clamp(conc_young, min=1e-15)
+        ratio = new_conc_young / ties.maximum(conc_young, 1e-15)
         new_h_young = torch.where(ridging_young, ratio * h_young, h_young)
         new_hs_young = torch.where(ridging_young, ratio * hs_young, hs_young)
         newice = torch.where(ridging_young, h_young - new_h_young, 0.0)
@@ -170,36 +171,36 @@ def transport_and_ridge(state, grid_arrays, dt: float, p: TransportParams):
         # young ridging: conserve level volume at constant area (fe.cpp:4077)
         ridge_ratio = torch.where(
             ridging_young,
-            1.0 - (1.0 - ridge_ratio) * thick / torch.clamp(thick + newice, min=1e-15),
+            1.0 - (1.0 - ridge_ratio) * thick / ties.maximum(thick + newice, 1e-15),
             ridge_ratio,
         )
         thick = thick + newice
         snow = snow + newsnow
 
-    conc_capped = torch.clamp(1.0 - new_conc_young - open_water + del_c, 0.0, 1.0)
+    conc_capped = ties.clip(1.0 - new_conc_young - open_water + del_c, 0.0, 1.0)
     # thick-ice ridging ratio from the cap (fe.cpp:3983: surf_ratio analog)
     ridge_ratio = torch.where(
         conc_before > 0.0,
         1.0
         - (1.0 - ridge_ratio)
-        * torch.clamp(conc_capped, max=1.0)
-        / torch.clamp(conc_before, min=1e-15),
+        * ties.minimum(conc_capped, 1.0)
+        / ties.maximum(conc_before, 1e-15),
         ridge_ratio,
     )
-    ridge_ratio = torch.clamp(ridge_ratio, 0.0, 1.0)
+    ridge_ratio = ties.clip(ridge_ratio, 0.0, 1.0)
     conc = conc_capped
 
     if p.use_young_ice:
-        new_conc_young = torch.minimum(torch.clamp(new_conc_young, min=0.0), 1.0 - conc)
+        new_conc_young = torch.minimum(ties.maximum(new_conc_young, 0.0), 1.0 - conc)
         conc_young = new_conc_young
 
     # thickness-limit "fix" (fe.cpp:4097-4105)
     has_ice = conc > 0.0
-    true_h = torch.where(has_ice, thick / torch.clamp(conc, min=1e-15), 0.0)
-    true_h = torch.clamp(true_h, max=p.max_true_thickness)
+    true_h = torch.where(has_ice, thick / ties.maximum(conc, 1e-15), 0.0)
+    true_h = ties.minimum(true_h, p.max_true_thickness)
     conc = torch.where(
         has_ice,
-        torch.minimum(1.0 - conc_young, thick / torch.clamp(true_h, min=1e-15)),
+        torch.minimum(1.0 - conc_young, thick / ties.maximum(true_h, 1e-15)),
         conc,
     )
     ridge_ratio = torch.where(has_ice, ridge_ratio, 0.0)
@@ -207,17 +208,17 @@ def transport_and_ridge(state, grid_arrays, dt: float, p: TransportParams):
     snow = torch.where(has_ice, snow, 0.0)
 
     # lower bounds (fe.cpp:4118-4123)
-    conc = torch.clamp(conc, min=0.0)
-    thick = torch.clamp(thick, min=0.0)
-    thick_myi = torch.clamp(thick_myi, min=0.0)
-    snow = torch.clamp(snow, min=0.0)
+    conc = ties.maximum(conc, 0.0)
+    thick = ties.maximum(thick, 0.0)
+    thick_myi = ties.maximum(thick_myi, 0.0)
+    snow = ties.maximum(snow, 0.0)
 
     # myi capping (fe.cpp:4124-4130)
     del_ci_ridge_myi = -conc_myi
     if p.newice_type == 4 and p.include_young_ice:
-        conc_myi = torch.minimum(torch.clamp(conc_myi, min=0.0), conc + conc_young)
+        conc_myi = torch.minimum(ties.maximum(conc_myi, 0.0), conc + conc_young)
     else:
-        conc_myi = torch.minimum(torch.clamp(conc_myi, min=0.0), conc)
+        conc_myi = torch.minimum(ties.maximum(conc_myi, 0.0), conc)
     del_ci_ridge_myi = (del_ci_ridge_myi + conc_myi) * phys.days_in_sec / dt
 
     # FSD bins: conservative transport then shape-preserving rescale to the
@@ -246,16 +247,16 @@ def transport_and_ridge(state, grid_arrays, dt: float, p: TransportParams):
         h_young=h_young,
         hs_young=hs_young,
         conc_young=conc_young,
-        fyi_fraction=torch.clamp(fyi_fraction, 0.0, 1.0),
+        fyi_fraction=ties.clip(fyi_fraction, 0.0, 1.0),
         age_det=age_det,
         age=age,
         conc_upd=conc_upd,
         conc_myi=conc_myi,
         thick_myi=thick_myi,
-        conc_summer=torch.clamp(conc_summer, 0.0, 1.0),
-        thick_summer=torch.clamp(thick_summer, min=0.0),
-        pond_volume=torch.clamp(pond_volume, min=0.0),
-        lid_volume=torch.clamp(lid_volume, min=0.0),
+        conc_summer=ties.clip(conc_summer, 0.0, 1.0),
+        thick_summer=ties.maximum(thick_summer, 0.0),
+        pond_volume=ties.maximum(pond_volume, 0.0),
+        lid_volume=ties.maximum(lid_volume, 0.0),
         **fsd_updates,
     )
     diag = {"divergence": div, "del_ci_ridge_myi": del_ci_ridge_myi}

@@ -22,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from nextsim_tpu_torch.core import ties
 from nextsim_tpu_torch.grid.grid import Grid
 
 
@@ -85,7 +86,7 @@ class Regridder:
         w11 = c11 * m11
         tot = w00 + w01 + w10 + w11
         num = w00 * f00 + w01 * f01 + w10 * f10 + w11 * f11
-        return num / torch.clamp(tot, min=1e-12)
+        return num / ties.maximum(tot, 1e-12)
 
     def to_wim(self, field):
         """Model-grid cell field -> WIM grid (zero on WIM land)."""

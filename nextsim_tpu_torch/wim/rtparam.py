@@ -31,6 +31,7 @@ import os
 import numpy as np
 import torch
 
+from nextsim_tpu_torch.core import ties
 from nextsim_tpu_torch.ops.rheology import _fast_pow, rdiv
 
 _H_ND = 4.0  # infinite-depth proxy used in the scattering model (RTparam_outer.c:23)
@@ -76,7 +77,7 @@ def _nr_corr_term(k, delta, H, fac):
     lampr = 5.0 * fac * k4 + delta
     kh = k * H
     small = torch.abs(kh) <= 7.5
-    khc = torch.clamp(kh, -7.5, 7.5)  # keep the unselected sinh branch finite
+    khc = ties.clip(kh, -7.5, 7.5)  # keep the unselected sinh branch finite
     sinh, cosh, tanh = torch.sinh(khc), torch.cosh(khc), torch.tanh(kh)
     f_s = lam * k * sinh - cosh
     df_s = lam * khc * cosh + (lampr - H) * sinh
@@ -123,13 +124,13 @@ def _rtparam_fast(alp_nd, hnd, int_adm):
     tables = _tables_on(dtype, device)
 
     # h-dependent regime limits (computed from the raw hnd, as in the C)
-    hnd_safe = torch.clamp(hnd, _HND_LIMS[0], _H1_LL)
+    hnd_safe = ties.clip(hnd, _HND_LIMS[0], _H1_LL)
     alp_lin3 = _MC_ALPLIN[1] + _MC_ALPLIN[0] * torch.log(hnd_safe)
-    dtmp = torch.clamp(torch.cos(hnd_safe / _H1_LL * math.pi / 2.0), min=1e-30)
+    dtmp = ties.maximum(torch.cos(hnd_safe / _H1_LL * math.pi / 2.0), 1e-30)
     alp_lin4 = _Y0_LL + _DY_LL * _fast_pow(dtmp, _N_LL)
 
     # thickness regime
-    hnd_c = torch.clamp(hnd, _HND_LIMS[0], _HND_LIMS[2])
+    hnd_c = ties.clip(hnd, _HND_LIMS[0], _HND_LIMS[2])
     low = hnd_c < _HND_LIMS[1]
     h0 = torch.where(low, _HND_LIMS[0], torch.full_like(hnd_c, _HND_LIMS[1]))
     h1 = torch.where(low, _HND_LIMS[1], torch.full_like(hnd_c, _HND_LIMS[2]))
@@ -145,7 +146,7 @@ def _rtparam_fast(alp_nd, hnd, int_adm):
     alp_c = torch.maximum(torch.minimum(alp_nd, lims[..., 5]), lims[..., 0])
     # opt in {0..4}: number of lims[1..4] not above alp_c
     opt = torch.sum(alp_c[..., None] >= lims[..., 1:5], dim=-1)
-    opt = torch.clamp(opt, 0, 4)
+    opt = ties.clip(opt, 0, 4)
     a0 = torch.take_along_dim(lims, opt[..., None], dim=-1)[..., 0]
     a1 = torch.take_along_dim(lims, opt[..., None] + 1, dim=-1)[..., 0]
     log_a = torch.as_tensor(_LOG_A, dtype=dtype, device=device)[opt]
@@ -178,7 +179,7 @@ def _rtparam_fast(alp_nd, hnd, int_adm):
     arg_t_3 = torch.atan2(ti, tr)
     mod_r2 = rr * rr + ri * ri
     mod_t_3 = torch.sqrt(tr * tr + ti * ti)
-    ac_3 = -2.0 * torch.log(torch.clamp(1.0 - mod_r2, min=1e-30))
+    ac_3 = -2.0 * torch.log(ties.maximum(1.0 - mod_r2, 1e-30))
 
     is3 = im == 3
     ac = torch.where(is3, ac_3, ac_12)
@@ -204,7 +205,7 @@ def rtparam_outer(h, om, visc_rp, guess, *, young=5.49e9, gravity=9.81,
     Returns a dict: damping [1/m], kice [1/m], kwtr [1/m], int_adm,
     atten_nond (ac, per-floe non-dimensional attenuation), modT, argR, argT.
     """
-    hs = torch.clamp(h, min=1e-6)  # guard h=0 lanes (masked out by callers)
+    hs = ties.maximum(h, 1e-6)  # guard h=0 lanes (masked out by callers)
     om = torch.as_tensor(om, dtype=h.dtype, device=h.device)
     rho = rhoice / rhowtr
     flex = young * _fast_pow(hs, 3) / 12.0 / (1.0 - poisson ** 2)

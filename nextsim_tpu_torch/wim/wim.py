@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nextsim_tpu_torch.core import ties
 from nextsim_tpu_torch.ops.rheology import rdiv
 from nextsim_tpu_torch.wim import rtparam
 
@@ -253,7 +254,7 @@ def inc_wave_spec(hs, tp, mwd, wave_mask, sg, p: WimParams):
     (wimdiscr.cpp:668-757). Returns sdf (nfreq, ndir, ny, nx)."""
     freq = _vec(sg["freq"], hs)
     wavedir = _vec(sg["wavedir"], hs)
-    tp_s = torch.clamp(tp, min=1e-8)
+    tp_s = ties.maximum(tp, 1e-8)
     if p.nwavefreq == 1:
         sfreq = ((hs / 4.0) ** 2)[None]
     else:
@@ -297,8 +298,8 @@ def dave_from_dfloe(dfloe, ice_mask, p: WimParams, moment: int = 1):
         # ndsum = (1-f) dmax^M sum_{m<mm} (ffac/xi^M)^m + ffac^mm (dmax/xi^mm)^M
         ffac = p.fragility * p.xi**2
         r = dmax / p.dmin
-        mm = torch.floor(torch.log(torch.clamp(r, min=1.0)) / math.log(p.xi))
-        mm = torch.clamp(mm, min=0.0)
+        mm = torch.floor(torch.log(ties.maximum(r, 1.0)) / math.log(p.xi))
+        mm = ties.maximum(mm, 0.0)
 
         def powt(q, n):  # q**n for a Python q and a tensor n
             return torch.pow(torch.full_like(n, q), n)
@@ -311,18 +312,18 @@ def dave_from_dfloe(dfloe, ice_mask, p: WimParams, moment: int = 1):
         ndsum = (1 - p.fragility) * dmax**moment * geo(qd, mm) + powt(
             ffac, mm
         ) * (dmax / powt(p.xi, mm)) ** moment
-        dave_b = ndsum / torch.clamp(nsum, min=1e-15)
+        dave_b = ndsum / ties.maximum(nsum, 1e-15)
         dave = torch.where(
             (dmax >= p.xi * p.dmin) & (mm > 0),
             dave_b,
-            torch.clamp(dmax**moment, min=p.dmin**moment),
+            ties.maximum(dmax**moment, p.dmin**moment),
         )
     else:
         # smooth power law P(d>D) = (Dmin/D)^fsd_exp (floeScalingSmooth,
         # iceinfo.cpp:328-356)
         fsd_exp = 2.0 + math.log(p.fragility) / math.log(p.xi)
         b = moment - fsd_exp
-        dmax_s = torch.clamp(dmax, min=p.dmin * (1 + 1e-6))
+        dmax_s = ties.maximum(dmax, p.dmin * (1 + 1e-6))
         a = fsd_exp * torch.exp(fsd_exp * (math.log(p.dmin) + torch.log(dmax_s)))
         a = a / (torch.exp(fsd_exp * torch.log(dmax_s)) - p.dmin**fsd_exp)
         dave_big = -(a / b) * (p.dmin**b - torch.exp(b * torch.log(dmax_s)))
@@ -335,7 +336,7 @@ def dave_from_dfloe(dfloe, ice_mask, p: WimParams, moment: int = 1):
 def dfloe_to_nfloes(dfloe, conc, p: WimParams):
     """(iceinfo.cpp:210-222)"""
     ok = (dfloe > 0) & (conc >= p.cice_min)
-    d = torch.clamp(dfloe, min=1e-6)
+    d = ties.maximum(dfloe, 1e-6)
     return torch.where(ok, conc / (d * d), 0.0)
 
 
@@ -343,9 +344,9 @@ def nfloes_to_dfloe(nfloes, conc, p: WimParams):
     """(iceinfo.cpp:253-268)"""
     ok = (nfloes > 0) & (conc >= p.cice_min)
     d = torch.where(
-        ok, torch.sqrt(torch.clamp(conc, min=1e-20) / torch.clamp(nfloes, min=1e-15)), 0.0
+        ok, torch.sqrt(ties.maximum(conc, 1e-20) / ties.maximum(nfloes, 1e-15)), 0.0
     )
-    return torch.clamp(d, max=p.dfloe_pack_thresh)
+    return ties.minimum(d, p.dfloe_pack_thresh)
 
 
 # ---------------------------------------------------------------------------
@@ -559,7 +560,7 @@ def wim_time_step(sdf, ice: Dict[str, Any], medium, sg_dev, p: WimParams,
     # mean floe size <D> (wimdiscr.cpp:912)
     dave = dave_from_dfloe(ice["dfloe"], imask, p, moment=1)
     in_ice = imask > 0.5
-    c1d = torch.where(in_ice, conc / torch.clamp(dave, min=1e-6), 0.0)
+    c1d = torch.where(in_ice, conc / ties.maximum(dave, 1e-6), 0.0)
 
     tau_fac = p.rhowtr * p.gravity
     nf = sdf.shape[0]
@@ -617,7 +618,7 @@ def wim_time_step(sdf, ice: Dict[str, Any], medium, sg_dev, p: WimParams,
     hs = 4.0 * torch.sqrt(mom0 + 1e-20)
     tp_ = torch.where(
         mom2 > 0.0,
-        2 * PI * torch.sqrt(torch.clamp(mom0, min=1e-20) / torch.clamp(mom2, min=1e-15)),
+        2 * PI * torch.sqrt(ties.maximum(mom0, 1e-20) / ties.maximum(mom2, 1e-15)),
         0.0,
     )
     mwd = torch.where(
@@ -629,9 +630,9 @@ def wim_time_step(sdf, ice: Dict[str, Any], medium, sg_dev, p: WimParams,
     if p.breaking:
         crit = in_ice & (2.0 * tot["var_strain"] > p.epsc**2)
         om_b = torch.sqrt(
-            torch.clamp(tot["mom2"], min=1e-20) / torch.clamp(tot["mom0"], min=1e-15)
+            ties.maximum(tot["mom2"], 1e-20) / ties.maximum(tot["mom0"], 1e-15)
         )
-        om_b = torch.clamp(om_b, min=1e-3)  # keep the masked-out Newton finite
+        om_b = ties.maximum(om_b, 1e-3)  # keep the masked-out Newton finite
         out_b = rtparam.rtparam_outer(
             thick, om_b, p.drag_rp, om_b * om_b / p.gravity,
             young=p.young, gravity=p.gravity, rhowtr=p.rhowtr,
@@ -639,7 +640,7 @@ def wim_time_step(sdf, ice: Dict[str, Any], medium, sg_dev, p: WimParams,
         )
         lam = rdiv(2 * PI, out_b["kice"])
         brk = crit & (lam < 2.0 * dfloe)
-        dfloe = torch.where(brk, torch.clamp(lam / 2.0, min=p.dmin), dfloe)
+        dfloe = torch.where(brk, ties.maximum(lam / 2.0, p.dmin), dfloe)
         nfloes = torch.where(brk, dfloe_to_nfloes(dfloe, conc, p), nfloes)
         broken = torch.where(brk, 1.0, broken)
 
@@ -706,7 +707,7 @@ class Wim:
         conc = torch.where(keep, conc, 0.0)
         vol = torch.where(keep, vol, 0.0)
         nfloes = torch.where(keep, nfloes, 0.0)
-        thick = torch.where(keep, vol / torch.clamp(conc, min=1e-12), 0.0)
+        thick = torch.where(keep, vol / ties.maximum(conc, 1e-12), 0.0)
         dfloe = nfloes_to_dfloe(nfloes, conc, p)
         # `broken` marks cells whose floes are in a broken state (dfloe below
         # the unbroken-pack size); new breakage this window ORs into it in
@@ -763,6 +764,18 @@ class Wim:
         return np.tile(np.arange(self.shape[1]) * self.dx, (self.shape[0], 1))
 
     # -- integration -----------------------------------------------------
+    def _run_scan(self, sdf, ice, medium, steady_in, dt_wim, n_steps: int):
+        """``n_steps`` WIM time steps from (sdf, ice) on ``medium``: (sdf,
+        ice, the last step's diagnostics). Pure, so differentiable; the
+        steady input may be zeros when ``p.steady`` is off, as the JAX
+        package passes it."""
+        diag = {}
+        for _ in range(n_steps):
+            sdf, ice, diag = wim_time_step(
+                sdf, ice, medium, self._sg_dev, self.p, dt_wim, self.dx, self.land, steady_in,
+            )
+        return sdf, ice, diag
+
     def run(self, duration: float) -> Dict[str, Any]:
         """Integrate the spectrum over `duration` seconds (run(),
         wimdiscr.cpp:1938-2050). Returns the final diagnostics dict."""
@@ -777,10 +790,6 @@ class Wim:
             self.ice["thick"], self.ice["mask"], self._sg_dev, self.p
         )
         steady = self._steady_in if self.p.steady else None
-        sdf, ice, diag = self.sdf, self.ice, {}
-        for _ in range(n_steps):
-            sdf, ice, diag = wim_time_step(
-                sdf, ice, medium, self._sg_dev, self.p, dt_wim, self.dx, self.land, steady,
-            )
-        self.sdf, self.ice, self.diag = sdf, ice, diag
+        self.sdf, self.ice, self.diag = self._run_scan(
+            self.sdf, self.ice, medium, steady, dt_wim, n_steps)
         return self.diag

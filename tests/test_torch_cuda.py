@@ -30,6 +30,12 @@ gives the bits of computing it once, so bbm and evp agree bitwise;
 mEVP's ``(vtm - vt) / (beta + 1)`` is a division by a Python scalar, which
 torch on CUDA computes through its reciprocal: rtol 1e-6 of the field's
 magnitude there.
+
+Reverse mode on the card (``momentum_cuda.SubstepLoop``): the gradient
+through ``substep_loop`` against straight autograd through the plain loop
+on the card, for the three rheologies in float32 and float64, and the
+regression test of the fault it repairs (a backward that took the kernel's
+loop for the identity), at an even and an odd launch count.
 """
 
 import pytest
@@ -155,6 +161,105 @@ def test_simulator_step_goes_through_the_kernel(cuda):
     sim.step_chunk(2)
     assert momentum_cuda.launches == launches + 2 * _launches(sim, sim.dyn.substeps)
     assert bool(torch.isfinite(sim.state.vt_u).all())
+
+
+# ---------------------------------------------------------------------------
+# reverse mode: SubstepLoop (the kernel's forward, the plain body's recompute)
+# ---------------------------------------------------------------------------
+
+def _grad_setup(dyn_type, dtype_name):
+    """(sim, consts, carry leaves, tensors to differentiate, output weights)
+    of a 33^2 dynamics step: the carry as leaves, ``tau_ax`` and ``volume``
+    as leaves, and the water drag coefficient as a tensor."""
+    import dataclasses
+
+    sim, consts, carry = _setup(dyn_type, dtype_name)
+    sim.dyn = dataclasses.replace(sim.dyn, quad_drag_coef_water=torch.tensor(
+        0.0055, dtype=sim.dtype, device="cuda", requires_grad=True))
+    leaves = tuple(c.detach().clone().requires_grad_(True) for c in carry)
+    consts.tau_ax = consts.tau_ax.detach().clone().requires_grad_(True)
+    consts.volume = consts.volume.detach().clone().requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    weights = [torch.randn(c.shape, generator=gen, device="cuda", dtype=sim.dtype) for c in carry]
+    wrt = [*leaves, consts.tau_ax, consts.volume, sim.dyn.quad_drag_coef_water]
+    return sim, consts, leaves, wrt, weights
+
+
+def _grads(out, wrt, weights):
+    loss = sum((o * w).sum() for o, w in zip(out, weights))
+    return torch.autograd.grad(loss, wrt, allow_unused=True)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+@pytest.mark.parametrize("dyn_type", ["bbm", "evp", "mevp"])
+def test_substep_loop_gradient_on_the_card_matches_straight_autograd(cuda, dyn_type, dtype_name):
+    """``substep_loop`` on the card with a recorded gradient goes through
+    SubstepLoop: the kernel's launches forward (counted, as many as the
+    forward-only path), the plain body's recompute backward. Its gradients
+    equal straight autograd through the plain loop on the card: the carry's
+    bitwise for bbm and evp, whose kernel gives the plain loop's bits (NaN
+    where the straight gradient is NaN: EVP's sqrt of a zero strain
+    invariant on land); the planes' and the drag coefficient's within 1e-12
+    (float64) / 1e-5 (float32) of their magnitude, summed segment by segment.
+    mEVP's kernel differs from the plain loop by ulps (a division through
+    its reciprocal), which the recompute starts from: 1e-5 of the magnitude
+    for every gradient."""
+    sim, consts, leaves, wrt, weights = _grad_setup(dyn_type, dtype_name)
+    steps = sim.dyn.substeps
+    launches = momentum_cuda.launches
+    out = _loop(momentum_cuda.substep_loop, sim, consts, leaves, steps)
+    assert out[0].grad_fn.name() == "SubstepLoopBackward"
+    assert momentum_cuda.launches == launches + _launches(sim, steps)
+    got = _grads(out, wrt, weights)
+    assert momentum_cuda.launches == launches + _launches(sim, steps)  # the backward runs no kernel
+    ref = _grads(_loop(momentum_cuda.substep_loop_reference, sim, consts, leaves, steps), wrt, weights)
+    torch.cuda.synchronize()
+    rtol = 1e-12 if dtype_name == "float64" else 1e-5
+    for i, (r, g) in enumerate(zip(ref, got)):
+        if dyn_type == "mevp":
+            torch.testing.assert_close(g, r, rtol=0, atol=1e-5 * float(r.nan_to_num().abs().max()),
+                                       equal_nan=True)
+        elif i < 8:
+            torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
+        else:
+            assert bool(torch.isfinite(r).all()) and float(r.abs().max()) > 0.0
+            torch.testing.assert_close(g, r, rtol=0, atol=rtol * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("steps", [16, 30])
+def test_gradient_through_the_kernel_is_not_the_identity(cuda, steps):
+    """The fault SubstepLoop repairs: the kernel wrote the loop's result into
+    planes autograd saw as clones of the carry, so on an even launch count
+    (16 substeps: 2 launches) a backward treated the loop as the identity
+    and gave every loop-invariant plane a zero gradient, and on an odd one
+    (30 substeps: 5 launches) the result had no graph at all. Now both equal
+    straight autograd through the plain loop, the carry's gradient is not
+    the identity and the wind stress's is nonzero."""
+    sim, consts, leaves, wrt, weights = _grad_setup("bbm", "float32")
+    assert _launches(sim, steps) % 2 == (steps == 30)
+    out = _loop(momentum_cuda.substep_loop, sim, consts, leaves, steps)
+    got = _grads(out, wrt, weights)
+    ref = _grads(_loop(momentum_cuda.substep_loop_reference, sim, consts, leaves, steps), wrt, weights)
+    torch.cuda.synchronize()
+    assert not torch.equal(got[0], weights[0])  # d loss / d vt_u in: not the identity's
+    g_tau = got[8]
+    assert float(g_tau.abs().max()) > 0.0
+    for i, (r, g) in enumerate(zip(ref, got)):
+        if i < 8:
+            torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
+        else:
+            torch.testing.assert_close(g, r, rtol=0, atol=1e-5 * float(r.abs().max()))
+
+
+def test_forward_only_loop_holds_no_graph(cuda):
+    """Without a recorded gradient the card runs today's path: the same
+    launches, and planes that no graph holds."""
+    sim, consts, carry = _setup("bbm", "float32")
+    with torch.no_grad():
+        out = _loop(momentum_cuda.substep_loop, sim, consts, carry, 16)
+    assert all(o.grad_fn is None and not o.requires_grad for o in out)
+    out = _loop(momentum_cuda.substep_loop, sim, consts, carry, 16)  # grad mode on, nothing requires grad
+    assert all(o.grad_fn is None for o in out)
 
 
 THERMO = dict(SQUARE, **{"thermo.use_thermo_forcing": True, "ideal_simul.init_SST_limit": 10.0,

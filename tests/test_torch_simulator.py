@@ -671,7 +671,7 @@ def test_kernel_params_mirror_the_source():
 
 SLICE_MODULES = [
     "nextsim_tpu_torch", "nextsim_tpu_torch.config.schema", "nextsim_tpu_torch.core.constants",
-    "nextsim_tpu_torch.core.state", "nextsim_tpu_torch.utils.dates",
+    "nextsim_tpu_torch.core.state", "nextsim_tpu_torch.core.ties", "nextsim_tpu_torch.utils.dates",
     "nextsim_tpu_torch.grid.projection", "nextsim_tpu_torch.grid.grid",
     "nextsim_tpu_torch.grid.arctic", "nextsim_tpu_torch.forcing.base",
     "nextsim_tpu_torch.forcing.providers", "nextsim_tpu_torch.ops.stencil",
