@@ -112,11 +112,23 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    recompute with the plain body backward) against straight autograd
    through the plain loop on the card in float32 and float64, a
    directional finite difference in float64 and a 3-step rollout; ms,
-   kernel launches, device busy and peak memory of each.
+   kernel launches, device busy and peak memory of each;
+24. a device mesh: 4 ranks of a 2x2 mesh spawned on the card (gloo with the
+   strips staged through pinned host memory when they share one card, NCCL
+   when each has its own): phase 8's 464^2 thermo-on configuration for 10
+   steps, bbm and evp at tpu.halo_depth 1 and 6, the gathered state
+   bitwise equal to the single-device Simulator; the kernel on rank 0's
+   ext block against the plain loop (bitwise); 1216^2 at 5 km, thermo on,
+   H = 6, 3 steps after one: ms/step, exchange share, bytes a step and
+   kernel launches by rank (ranks that share a card time-slice it: no
+   scaling numbers); configs/toy.cfg through the CLI on 4 ranks against one
+   process, every array of the restart, snapshots, moorings and drifters
+   bitwise equal.
 
 The line before the last is the JSON record of the kernel (its launches
-summed over the paths of phases 5, 8, 11, 14, 17, 19, 22 and 23, each
-counted from zero, none of them zero); the last line is
+summed over the paths of phases 5, 8, 11, 14, 17, 19, 22, 23 and 24 (the
+mesh path summed over its ranks), each counted from zero, none of them
+zero); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1990,6 +2002,202 @@ def gradient_phase(smi: str) -> int:
     return launches
 
 
+# --- 24. multi-device runs -----------------------------------------------------
+
+MESH_RANKS = 4  # a 2x2 mesh
+MESH_STEPS = 10
+MESH_BIG = dict(BENCH_THERMO, **{"grid.nx": 1216, "grid.ny": 1216, "grid.resolution": 5e3})
+MESH_CLI = ["--config-files", "configs/toy.cfg", "simul.duration=0.0625", "moorings.snapshot=false",
+            "moorings.output_timestep=0.020833333333333332", "output.output_per_day=48",
+            "restart.write_final_restart=true", "drifters.use_equally_spaced_drifters=true",
+            "drifters.equally_spaced_drifters_output_time_step=0.006944444444444444"]
+MESH_FILES = ("restart/restart_final.npz", "field_final.npz", "field_12.npz",
+              "Moorings_20151016.nc", "Drifters_equally_spaced.nc")
+
+
+def mesh_rank(cases, out_dir):
+    """One rank of phase 24's world: each (name, overrides, warm-up steps,
+    steps) case through ``Simulator.step`` on this rank's block, its kernel
+    launches, exchanges and wall time counted from zero over the counted
+    steps; rank 0 saves the gathered state to ``out_dir/<name>.npz``, and
+    on the bbm H=6 case holds the kernel against the plain loop on its ext
+    block (after the counts are read). Every rank writes its records to
+    ``out_dir/rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from nextsim_tpu_torch import Config, Simulator
+    from nextsim_tpu_torch.ops import momentum, momentum_cuda
+    from nextsim_tpu_torch.parallel.distributed import local_device
+
+    rank = dist.get_rank()
+    device = local_device("cuda")
+    records = []
+    for name, over, warm, steps in cases:
+        sim = Simulator(Config(overrides=over), device=device)
+        for _ in range(warm):
+            sim.step()
+        torch.cuda.synchronize(device)
+        dist.barrier()
+        mesh = sim.mesh
+        momentum_cuda.launches = 0
+        mesh.exchanges, mesh.seconds, mesh.stats.messages, mesh.stats.bytes = 0, 0.0, 0, 0
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            sim.step()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        rec = {"name": name, "rank": rank, "device": str(device), "backend": dist.get_backend(),
+               "block": list(sim.state.conc.shape), "launches": momentum_cuda.launches,
+               "steps": steps, "wall": wall, "exchanges": mesh.exchanges,
+               "exchange_s": mesh.seconds, "bytes": mesh.stats.bytes, "messages": mesh.stats.messages}
+        host = sim.host_state()
+        if rank == 0:
+            arrays = {f: getattr(host, f) for f in host.__dataclass_fields__ if getattr(host, f) is not None}
+            for f, a in arrays.items():
+                if not np.isfinite(a).all():
+                    raise AssertionError(f"mesh {name}: {f} is not finite")
+            np.savez(Path(out_dir) / f"{name}.npz", **arrays)
+        if rank == 0 and name == "bbm_h6":
+            ga = dict(sim.grid_arrays, cohesion=sim.c_fix + sim.c_alea * sim.state.random_number)
+            consts, carry = momentum.substep_setup(sim.state, sim._next_forcing(), ga, sim.dt, sim.dyn)
+            H = mesh.halo_depth
+            args = (H, sim.dt / sim.dyn.substeps, sim.dt, sim.grid.dx, "bbm", sim.dyn)
+            got = momentum_cuda.substep_loop(consts, carry, *args)
+            ref = momentum_cuda.substep_loop_reference(consts, carry, *args)
+            rec["kernel_err"] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        records.append(rec)
+        del sim
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(records))
+
+
+def _mesh_cli(out: Path, ranks: int):
+    """The CLI on ``ranks`` ranks (one process without a world), started."""
+    from nextsim_tpu_torch.parallel.distributed import free_port
+
+    port = free_port()
+    procs = []
+    for r in range(ranks):
+        env = dict(os.environ)
+        extra = []
+        if ranks > 1:
+            env.update(RANK=str(r), WORLD_SIZE=str(ranks), LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(ranks), MASTER_ADDR="localhost", MASTER_PORT=str(port))
+            extra = ["tpu.mesh_shape=2x2", "tpu.halo_depth=6"]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "nextsim_tpu_torch", "--device", "cuda", *MESH_CLI,
+             f"output.exporter_path={out}", *extra],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return procs
+
+
+def _wait_all(procs, what):
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: a process exited {p.returncode}: {out[-3000:]}")
+
+
+def _same_files(a: Path, b: Path) -> int:
+    """Every array of MESH_FILES in ``a`` equals ``b``'s bitwise; returns
+    how many arrays were compared."""
+    from scipy.io import netcdf_file
+
+    n = 0
+    for name in MESH_FILES:
+        if name.endswith(".npz"):
+            with np.load(a / name) as x, np.load(b / name) as y:
+                pairs = [(k, x[k], y[k]) for k in y.files]
+                if sorted(x.files) != sorted(y.files):
+                    raise AssertionError(f"mesh CLI {name}: arrays {sorted(x.files)} vs {sorted(y.files)}")
+        else:
+            with netcdf_file(a / name, "r", mmap=False) as x, netcdf_file(b / name, "r", mmap=False) as y:
+                pairs = [(k, np.asarray(x.variables[k][:]), np.asarray(y.variables[k][:])) for k in y.variables]
+        for k, u, v in pairs:
+            if k != "__meta__" and not np.array_equal(u, v, equal_nan=True):
+                raise AssertionError(f"mesh CLI {name}: {k} differs from the one-process run")
+            n += 1
+    return n
+
+
+def mesh_phase(smi: str):
+    """Phase 24: a 2x2 mesh of 4 ranks (gloo with host-staged strips when
+    they share a card, NCCL when each has its own): the 464^2 thermo-on
+    main path, 10 steps, bbm and evp at halo depth 1 and 6, gathered state
+    bitwise = the single-device Simulator; 1216^2 at 5 km, thermo on, H = 6,
+    3 steps timed after one; the CLI on toy.cfg with moorings, snapshots,
+    drifters and a final restart on 4 ranks = on one process, bitwise.
+    Returns (the kernel launches of the mesh runs summed over the ranks,
+    the kernel's max |diff| from the plain loop on an ext block)."""
+    import tempfile
+
+    import torch
+
+    from nextsim_tpu_torch import state_to_numpy
+    from nextsim_tpu_torch.parallel.distributed import run_world
+
+    t_phase = time.perf_counter()
+    scratch = ROOT / "nextsim_tpu_torch" / "build"  # git-ignored
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        tmp = Path(tmp)
+        (tmp / "world").mkdir()
+        cases = [(f"{d}_h{h}", dict(BENCH_THERMO, **{"setup.dynamics-type": d, "tpu.mesh_shape": "2x2",
+                                                    "tpu.halo_depth": h}), 0, MESH_STEPS)
+                 for d in ("bbm", "evp") for h in (1, 6)]
+        cases.append(("big", dict(MESH_BIG, **{"tpu.mesh_shape": "2x2", "tpu.halo_depth": 6}), 1, 3))
+        run_world(mesh_rank, MESH_RANKS, args=(cases, str(tmp / "world")), device="cuda", timeout=300)
+        # the CLI runs, 4 ranks and 1 process, beside the single-device runs
+        cli = _mesh_cli(tmp / "cli4", MESH_RANKS) + _mesh_cli(tmp / "cli1", 1)
+        records = [r for k in range(MESH_RANKS)
+                   for r in json.loads((tmp / "world" / f"rank{k}.json").read_text())]
+        for d in ("bbm", "evp"):
+            sim = make_sim(dict(BENCH_THERMO, **{"setup.dynamics-type": d}))
+            for _ in range(MESH_STEPS):
+                sim.step()
+            ref = state_to_numpy(sim.state)
+            del sim
+            for h in (1, 6):
+                with np.load(tmp / "world" / f"{d}_h{h}.npz") as got:
+                    bad = [f for f, v in ref.items() if not np.array_equal(got[f], v)]
+                if bad:
+                    raise AssertionError(f"mesh {d} H={h}: {bad} differ from the single-device Simulator")
+            torch.cuda.empty_cache()
+        _wait_all(cli, "mesh CLI")
+        n_arrays = _same_files(tmp / "cli4", tmp / "cli1")
+        if sorted(p.name for p in (tmp / "cli4").glob("Moorings_*")) != ["Moorings_20151016.nc"]:
+            raise AssertionError("mesh CLI: more than rank 0 wrote moorings")
+
+    def of(name):
+        return [r for r in records if r["name"] == name]
+
+    for name in ("bbm_h1", "bbm_h6", "evp_h1", "evp_h6", "big"):
+        rs = of(name)
+        if any(r["launches"] <= 0 for r in rs):
+            raise AssertionError(f"mesh {name}: a rank ran without the kernel: {[r['launches'] for r in rs]}")
+        phase("mesh", f"{name}: blocks {[tuple(r['block']) for r in rs]}, {rs[0]['backend']} on "
+              f"{sorted({r['device'] for r in rs})}; {rs[0]['steps']} steps, ms/step by rank "
+              f"{[round(1e3 * r['wall'] / r['steps'], 2) for r in rs]}, exchange share "
+              f"{[round(r['exchange_s'] / r['wall'], 3) for r in rs]}, {rs[0]['exchanges'] // rs[0]['steps']} "
+              f"exchanges a step, bytes sent a step by rank {[r['bytes'] // r['steps'] for r in rs]}, "
+              f"kernel launches by rank {[r['launches'] for r in rs]}; {smi}")
+    kernel_err = max(r.get("kernel_err", 0.0) for r in records)
+    if kernel_err != 0.0:
+        raise AssertionError(f"mesh: the kernel on rank 0's ext block is {kernel_err} off the plain loop")
+    phase("mesh", f"464^2 thermo on, bbm and evp, H = 1 and 6: the gathered 2x2 state equals the "
+          f"single-device Simulator bitwise after {MESH_STEPS} steps; the kernel on rank 0's ext block "
+          f"equals the plain loop bitwise (bbm, 6 substeps); 4-rank CLI = 1-process CLI on "
+          f"{n_arrays} arrays of {len(MESH_FILES)} files; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s; times of ranks that share one card are no scaling "
+          f"numbers; {smi}")
+    return sum(r["launches"] for r in records), kernel_err
+
+
 @contextlib.contextmanager
 def data_dir(path: Path):
     """NEXTSIM_DATA_DIR set to ``path`` inside the block."""
@@ -2230,6 +2438,9 @@ def main() -> int:
 
     # 23. gradients through the step
     path_launches["gradient"] = gradient_phase(smi)
+
+    # 24. a 2x2 mesh of ranks
+    path_launches["mesh"], mesh_err = mesh_phase(smi)
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     if min(path_launches.values()) <= 0:
         raise AssertionError(f"a path ran without the kernel: {path_launches}")
@@ -2241,7 +2452,7 @@ def main() -> int:
         "replaces": "nextsim_tpu/ops/momentum_pallas.py:286",
         "launches": sum(path_launches.values()),
         "launches_by_path": path_launches,
-        "max_abs_err": max(main_err, dataset_err, wave_err),
+        "max_abs_err": max(main_err, dataset_err, wave_err, mesh_err),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

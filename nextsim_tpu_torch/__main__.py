@@ -12,6 +12,16 @@ written next to the outputs (reference: writeLogFile, fe.cpp:14371-14487).
 
 ``--device`` picks the torch device, ``cuda`` by default. Without a CUDA
 device the run stops with an error; the CPU is used only when asked for.
+
+A device mesh (``tpu.mesh_shape=DPYxDPX``) runs one process per block, as
+the reference runs one MPI rank per partition (model/run.sh:55):
+
+    torchrun --nproc-per-node 4 -m nextsim_tpu_torch [--device cpu] ... tpu.mesh_shape=2x2
+
+or with RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT (or the JAX
+package's JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES, JAX_PROCESS_ID) set in
+each process (parallel/distributed.py). Rank r takes ``cuda:{r % cards}``;
+rank 0 writes the log and the outputs.
 """
 
 from __future__ import annotations
@@ -101,11 +111,22 @@ def main(argv=None) -> int:
         )
         return 2
 
-    from nextsim_tpu_torch.model.simulator import Simulator
+    # ranks of a multi-device run (none named: one process)
+    import torch.distributed as dist
 
-    sim = Simulator(cfg, device=device)
-    write_log_file(sim)
-    sim.run()
+    from nextsim_tpu_torch.model.simulator import Simulator
+    from nextsim_tpu_torch.parallel.distributed import init_distributed, local_device
+    from nextsim_tpu_torch.parallel.multihost import is_writer
+
+    joined = not dist.is_initialized() and init_distributed(device)
+    try:
+        sim = Simulator(cfg, device=local_device(device))
+        if is_writer():
+            write_log_file(sim)
+        sim.run()
+    finally:
+        if joined:
+            dist.destroy_process_group()
     return 0
 
 

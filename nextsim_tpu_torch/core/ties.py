@@ -1,6 +1,7 @@
 """``jnp.maximum``, ``jnp.minimum`` and ``jnp.clip`` against a bound, with
 JAX's gradient at a tie; ``scalar`` for the math of a parameter that may be
-a tensor.
+a tensor; ``pow``, a power whose bits do not depend on where an element sits
+in its tensor.
 
 ``torch.clamp(x, min=c)`` and ``jnp.maximum(x, c)`` agree in value, but not
 in reverse mode where ``x == c`` exactly: clamp passes the whole gradient to
@@ -59,3 +60,36 @@ def scalar(name: str, x):
     parameter that a caller differentiates (``math`` would read it as a float
     and cut its gradient without a word)."""
     return getattr(torch if isinstance(x, torch.Tensor) else math, name)(x)
+
+
+#: elements of a CPU ``pow`` call that PyTorch runs on one thread
+#: (``at::internal::GRAIN_SIZE``)
+_ONE_THREAD = 32768
+#: a multiple of two vectors of the widest lane count (AVX-512: 16 floats)
+_LANES = 64
+
+
+def pow(x: torch.Tensor, e) -> torch.Tensor:
+    """``x ** e`` for a float or tensor exponent ``e``, with bits that depend
+    on the element alone.
+
+    On the CPU, PyTorch's vectorized ``pow`` rounds otherwise than its scalar
+    loop, which takes the elements left over at the end of each thread's
+    chunk: a tensor and a block cut out of it would differ in the last bit
+    here and there, and so would a run on a device mesh and one on a single
+    device. So the flattened elements are padded with ones to whole vectors
+    and taken in calls small enough for one thread: every element goes
+    through the vectorized loop. On a CUDA device every element takes the
+    same path, and ``torch.pow`` is used as it is."""
+    if x.device.type != "cpu":
+        return torch.pow(x, e)
+    shape = torch.broadcast_shapes(x.shape, e.shape) if isinstance(e, torch.Tensor) else x.shape
+    n = math.prod(shape)
+    pad = -n % _LANES
+
+    def flat(t):
+        return torch.cat([t.expand(shape).reshape(-1), t.new_ones(pad)])
+
+    xs = flat(x).split(_ONE_THREAD)
+    es = flat(e).split(_ONE_THREAD) if isinstance(e, torch.Tensor) else [e] * len(xs)
+    return torch.cat([torch.pow(a, b) for a, b in zip(xs, es)])[:n].view(shape)

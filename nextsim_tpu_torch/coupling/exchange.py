@@ -48,6 +48,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from nextsim_tpu_torch.parallel.multihost import is_writer
 from nextsim_tpu_torch.utils import dates
 
 SENT_FIELDS = {
@@ -89,11 +90,15 @@ RECEIVED_VECTOR_PAIRS = (("uocean", "vocean"), ("tauwix", "tauwiy"))
 
 class Coupler:
     def __init__(self, cfg, grid, time_init: float, directory: Optional[str] = None,
-                 *, dtype=torch.float32, device):
+                 *, dtype=torch.float32, device, mesh=None):
         self.cfg = cfg
         self.grid = grid
         self.dtype = dtype
         self.device = torch.device(device)
+        # on a device mesh (the rank's seam.Seam) the sums are ext blocks,
+        # gathered when a window closes, and rank 0 writes the put file;
+        # every rank reads the received file and keeps its block
+        self.mesh = mesh
         self.dt_cpl = cfg["coupler.timestep"]  # seconds
         self.directory = directory or os.path.join(cfg["output.exporter_path"], "coupler")
         os.makedirs(self.directory, exist_ok=True)
@@ -183,14 +188,21 @@ class Coupler:
         if t_days - self._last_put < window_days - 1e-9 or self._count == 0:
             return False
         tag = dates.datenum_to_string(t_days)
-        self._write_put(tag)
+        if self.mesh is None:
+            self._write_put(tag)
+        else:
+            sums = self.mesh.gather(self._accum)
+            if is_writer():
+                self._write_put(tag, sums)
         self._read_get(tag)
         self._accum = {}
         self._count = 0
         self._last_put = t_days
         return True
 
-    def _write_put(self, tag: str):
+    def _write_put(self, tag: str, sums: Optional[Dict[str, np.ndarray]] = None):
+        """Write the window's means; ``sums`` are host copies of the window
+        sums (default: one host copy of the device's)."""
         from scipy.io import netcdf_file
 
         path = os.path.join(self.directory, f"cpl_out_{tag}.nc")
@@ -198,8 +210,9 @@ class Coupler:
         eg = self.exchange_grid
         fields: Dict[str, np.ndarray] = {}
         # the window's one host copy of the sums
-        for name, acc in self._accum.items():
-            mean = acc.cpu().numpy() / self._count
+        sums = {k: v.cpu().numpy() for k, v in self._accum.items()} if sums is None else sums
+        for name, acc in sums.items():
+            mean = acc / self._count
             if eg is not None:
                 # conservative remap onto the exchange grid (reference:
                 # updateGridMean with interpMethod::conservative for
@@ -288,7 +301,8 @@ class Coupler:
             arr = torch.as_tensor(np.ascontiguousarray(v), device=self.device)
             if target in NODE_TARGETS and tuple(arr.shape) == tuple(self.grid.shape):
                 arr = stencil.node_mean_of_cells(arr, torch.ones_like(arr))
-            self._received[target] = arr.to(self.dtype)
+            arr = arr.to(self.dtype)
+            self._received[target] = arr if self.mesh is None else self.mesh.to_blocks(arr)
 
     # -- get path ----------------------------------------------------------
     def apply_received(self, forcing):

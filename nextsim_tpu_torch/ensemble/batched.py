@@ -52,8 +52,15 @@ class BatchedEnsemble:
                  params: Optional[PerturbationParams] = None, device="cuda"):
         from nextsim_tpu_torch.model.simulator import Simulator
 
+        from nextsim_tpu_torch.parallel.seam import mesh_shape
+
         if n_members < 1:
             raise ValueError("n_members must be >= 1")
+        if mesh_shape(cfg) != (1, 1):
+            raise NotImplementedError(
+                "the PyTorch port does not have the batched ensemble on a device mesh "
+                "(ROADMAP A.14b) yet"
+            )
         if cfg["statevector.ensemble_member"] > 0:
             raise ValueError(
                 "BatchedEnsemble manages perturbations itself: leave "

@@ -8,6 +8,11 @@
   node velocities on the device.
 * ``check_fields`` and ``detailed_report`` (debugging.check_fields) are the
   slow host audit of a host copy of the state (numpy arrays).
+
+On a device mesh the device checks take ``owned`` (``Seam.owned``) and
+reduce a rank's owned cells only, so that no ring cell counts twice; the
+Simulator combines the ranks' results with an all-reduce where it reads
+them.
 """
 
 from __future__ import annotations
@@ -37,8 +42,11 @@ YOUNG_BOUNDS: List[Tuple[str, float, float]] = [
 MAX_SPEED = 5.0  # m/s (fe.cpp:14614)
 
 
-def violations(state, use_young_ice: bool = True) -> torch.Tensor:
-    """An int32 vector of per-check violation flags, on the state's device."""
+def violations(state, use_young_ice: bool = True, owned=None) -> torch.Tensor:
+    """An int32 vector of per-check violation flags, on the state's device;
+    ``owned`` crops a rank's block to its owned region."""
+    if owned is not None:
+        state = owned(state)
     checks = CELL_BOUNDS + (YOUNG_BOUNDS if use_young_ice else [])
     flags = []
     for name, lo, hi in checks:
@@ -71,11 +79,12 @@ def field_stats(state) -> Dict[str, Tuple[float, float]]:
     return out
 
 
-def check_velocity_fields(state, node_mask, spd_lim: float = 0.5):
+def check_velocity_fields(state, node_mask, spd_lim: float = 0.5, owned=None):
     """Statistical velocity-outlier detection (reference: checkVelocityFields,
     fe.cpp:14487-14530): for nodes faster than spd_lim, the relative error
     of the node velocity vs. the mean/std of its 4 neighbours; returns
-    (count, max_rel_err) as device scalars."""
+    (count, max_rel_err) as device scalars, over the owned nodes when
+    ``owned`` crops a rank's block."""
     from nextsim_tpu_torch.ops import stencil
 
     u, v = state.vt_u, state.vt_v
@@ -92,6 +101,8 @@ def check_velocity_fields(state, node_mask, spd_lim: float = 0.5):
     mu_v, sd_v = stats(v)
     rel = torch.hypot((mu_u - u) / sd_u, (mu_v - v) / sd_v)
     rel = torch.where(fast, rel, 0.0)
+    if owned is not None:
+        rel = owned(rel)
     rogue = rel > 4.0
     return rogue.sum(), rel.max()
 

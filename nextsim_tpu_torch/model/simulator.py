@@ -21,8 +21,15 @@ running means accumulate on the device every step; every other output
 or chunk, and ``run`` clamps the chunk length so that it divides each exact
 output cadence, as the JAX package does.
 
+A device mesh (``tpu.mesh_shape = DPYxDPX``) runs one torch.distributed
+rank per block (parallel/seam.py): each rank holds its ext block of the
+state, the grid arrays and every step's forcing, the step exchanges rings
+through ``self.mesh`` (a ``seam.Seam``), and the outputs gather the owned
+blocks (``gather``) and are written by rank 0. ``tpu.partition_mode``
+gspmd and shard_map run this one schedule.
+
 The subsystems the JAX Simulator wires up that the port does not have yet
-(a device mesh, a bfloat16 state) raise ``NotImplementedError``
+(the WIM on a mesh, a bfloat16 state) raise ``NotImplementedError``
 naming the ROADMAP item that ports them; none is skipped silently. The
 options that tune JAX's compilation and TPU kernels
 (``tpu.donate_state``, ``tpu.compilation_cache_dir``, ``tpu.substep_kernel``,
@@ -41,7 +48,7 @@ import torch
 
 from nextsim_tpu_torch.config import Config
 from nextsim_tpu_torch.core import constants as phys
-from nextsim_tpu_torch.core.state import State, to_host
+from nextsim_tpu_torch.core.state import State, state_from_numpy, to_host
 from nextsim_tpu_torch.forcing.providers import make_provider
 from nextsim_tpu_torch.grid.grid import Grid
 from nextsim_tpu_torch.model import checks, init_state, params
@@ -50,6 +57,7 @@ from nextsim_tpu_torch.model.params_thermo import thermo_params
 from nextsim_tpu_torch.ops import fsd as fsd_ops
 from nextsim_tpu_torch.ops import momentum, nesting, stencil, thermo, transport
 from nextsim_tpu_torch.output.drifters import instantiate_drifters
+from nextsim_tpu_torch.parallel import multihost, seam
 from nextsim_tpu_torch.utils import async_writer, dates
 from nextsim_tpu_torch.utils.logging import get_logger
 from nextsim_tpu_torch.utils.timer import Timer
@@ -61,9 +69,8 @@ def _unported(cfg) -> Optional[str]:
     """The first configured subsystem the port does not have yet, as
     'option (ROADMAP item)', or None."""
     rules = [
-        (str(cfg["tpu.mesh_shape"]).lower().strip() not in ("", "1x1")
-         or cfg["tpu.partition_mode"] != "gspmd" or cfg["tpu.halo_depth"] != 1,
-         "a device mesh (ROADMAP A.14, multi-device)"),
+        (seam.mesh_shape(cfg) != (1, 1) and cfg["nextwim.use_wim"],
+         "the waves-in-ice module on a device mesh (ROADMAP A.14b)"),
         (cfg["tpu.dtype"] == "bfloat16", "tpu.dtype=bfloat16 (ROADMAP A.16, bfloat16 state)"),
     ]
     for on, what in rules:
@@ -83,6 +90,9 @@ class Simulator:
         self.device = torch.device(device)
         self.dtype = _DTYPES[cfg["tpu.dtype"]]
         self.grid = grid if grid is not None else Grid.from_config(cfg)
+        # one rank per block of tpu.mesh_shape, None for one block
+        self.mesh = seam.make_seam(cfg, self.grid)
+        self._forcing_blocks = (None, None)
 
         # --- time bookkeeping (host) -------------------------------------
         self.dt = float(cfg["simul.timestep"])  # seconds
@@ -127,6 +137,9 @@ class Simulator:
                 conc_fsd=cf,
                 conc_mech_fsd=cf.clone() if self.fsd_params.distinguish_mech_fsd else None,
             )
+        # a rank keeps its ext block of the global grid arrays and state
+        self.grid_arrays = self.to_blocks(self.grid_arrays)
+        self.state = self.to_blocks(self.state)
         self.forcing_provider = make_provider(cfg, self.grid, self.dtype, device=self.device)
         # ensemble member > 0: perturbed forcing (reference: #ifdef ENSEMBLE,
         # externaldata.cpp:244-278; modules/enkf/perturbation). The AR(1)
@@ -145,7 +158,7 @@ class Simulator:
         if cfg["nesting.use_nesting"]:
             npar = nesting.NestingParams.from_config(cfg)
             dist = nesting.distance_to_open_boundary(self.grid)
-            weight = on_dev(nesting.nudge_weight(dist, npar, self.dt))
+            weight = self.to_blocks(on_dev(nesting.nudge_weight(dist, npar, self.dt)))
             source = make_nesting_source(cfg, self.grid, self.dtype, device=self.device)
             self.nesting = (npar, weight, source)
         self.diag = {}
@@ -159,8 +172,10 @@ class Simulator:
         if cfg["moorings.use_moorings"]:
             from nextsim_tpu_torch.output.moorings import Moorings
 
-            self.moorings = Moorings(cfg, self.grid, self.time_init)
-        self.drifters = instantiate_drifters(cfg, self.grid, to_host(self.state.conc), self.time_init)
+            self.moorings = Moorings(cfg, self.grid, self.time_init,
+                                     process_rank=multihost.process_index(),
+                                     process_count=multihost.process_count(), mesh=self.mesh)
+        self.drifters = instantiate_drifters(cfg, self.grid, self.gather(self.state.conc), self.time_init)
         self._drifter_last_move = self.time_init
         self._drifter_ut_prev = None
         # coupling exchange (reference: initOASIS fe.cpp:7585-7860)
@@ -169,7 +184,7 @@ class Simulator:
             from nextsim_tpu_torch.coupling import Coupler
 
             self.coupler = Coupler(cfg, self.grid, self.time_init,
-                                   dtype=self.dtype, device=self.device)
+                                   dtype=self.dtype, device=self.device, mesh=self.mesh)
 
         # waves-in-ice module (reference: modules/wim; nextwim.* options in
         # options_wim.cpp). coupling-option=break_on_mesh/run_on_mesh run
@@ -239,12 +254,35 @@ class Simulator:
 
     # ------------------------------------------------------------------
     def host_state(self) -> State:
-        """The state as host numpy arrays, for host consumers (IO, checks)."""
-        return to_host(self.state)
+        """The GLOBAL state as host numpy arrays, for host consumers (IO,
+        checks); collective on a device mesh."""
+        return self.gather(self.state)
 
-    def _step_fn(self, state, forcing, tinfo, nest=None):
+    def gather(self, tree):
+        """Host numpy copy of ``tree`` (tensors, a dataclass, a dict or a
+        tuple of them) with the global value of every block on a device mesh
+        (collective: every rank calls it in the same order)."""
+        return to_host(tree) if self.mesh is None else self.mesh.gather(tree)
+
+    def to_blocks(self, tree):
+        """The rank's ext block of every global plane of ``tree`` on a
+        device mesh; ``tree`` itself on one device."""
+        return tree if self.mesh is None else self.mesh.to_blocks(tree)
+
+    def _global_state(self) -> State:
+        """The global state on the device (gathered on a device mesh)."""
+        if self.mesh is None:
+            return self.state
+        host = self.host_state()
+        return state_from_numpy({f: getattr(host, f) for f in host.__dataclass_fields__},
+                                device=self.device)
+
+    def _step_fn(self, state, forcing, tinfo, nest=None, exchanger=None):
         """One model step on the device: (state', diag, violation flags).
-        ``nest`` holds the outer run's fields to relax toward, or is None."""
+        ``nest`` holds the outer run's fields to relax toward, or is None;
+        ``exchanger`` is the rank's ``seam.Seam`` on a device mesh (state,
+        forcing and grid arrays are then ext blocks, and the flags count
+        the owned cells), else None."""
         ga = dict(self.grid_arrays)
         # cohesion field for this step (reference: calcCohesion, fe.cpp:3909-3914)
         ga["cohesion"] = self.c_fix + self.c_alea * state.random_number
@@ -260,7 +298,7 @@ class Simulator:
             state = self._fsd_block(state, forcing, diag)
         # ---- dynamics (reference: fe.cpp:8197-8221) ----------------------
         if dyn.dynamics_type in ("bbm", "evp", "mevp"):
-            state, mdiag = momentum.explicit_solve(state, forcing, ga, self.dt, dyn)
+            state, mdiag = momentum.explicit_solve(state, forcing, ga, self.dt, dyn, exchanger)
             diag.update(mdiag)
         elif dyn.dynamics_type == "free_drift":
             state = momentum.free_drift(state, forcing, ga, self.dt, dyn)
@@ -275,7 +313,11 @@ class Simulator:
         if nest is not None:
             npar, weight, _source = self.nesting
             state = nesting.apply_nesting(state, nest, weight, npar)
-        return state, diag, checks.violations(state, use_young_ice=dyn.use_young_ice)
+        owned = None
+        if exchanger is not None:
+            state = exchanger.ring_state(state)
+            owned = exchanger.owned
+        return state, diag, checks.violations(state, use_young_ice=dyn.use_young_ice, owned=owned)
 
     #: the JAX package's name for the step function: ``raw_step_fn(state,
     #: forcing, tinfo)`` -> (state', diag, violation flags), differentiable
@@ -333,7 +375,8 @@ class Simulator:
             forcing = self.coupler.apply_received(forcing)
         nest = None
         if self.nesting is not None:
-            outer = self.nesting[2].fields_at(self.current_time + self.dt * dates.DAYS_IN_SEC)
+            outer = self.to_blocks(
+                self.nesting[2].fields_at(self.current_time + self.dt * dates.DAYS_IN_SEC))
             if self.cfg["nesting.use_ocean_nesting"] and outer and "sst" in outer and "sss" in outer:
                 # outer-run SST/SSS become the slab-ocean nudging targets
                 # (reference: forcingOcean ocean-nesting branch,
@@ -345,7 +388,7 @@ class Simulator:
         tinfo = self.time_info()
         self.timer.tock("forcing")
         self.timer.tick("device_step")
-        self.state, self.diag, viol = self._step_fn(self.state, forcing, tinfo, nest)
+        self.state, self.diag, viol = self._step_fn(self.state, forcing, tinfo, nest, self.mesh)
         self.last_forcing = forcing  # for output.save_forcing_fields
         if self.wim is not None:
             # WIM diagnostics for moorings (held constant between couplings)
@@ -472,9 +515,17 @@ class Simulator:
         return forcing.replace(**repl) if repl else forcing
 
     def _next_forcing(self):
-        return self.forcing_provider(
+        """The provider's forcing for the coming step; on a device mesh its
+        ext block, cut once for a provider that returns the same bundle
+        again."""
+        forcing = self.forcing_provider(
             self.current_time + self.dt * dates.DAYS_IN_SEC, self.time_init
         )
+        if self.mesh is None:
+            return forcing
+        if self._forcing_blocks[0] is not forcing:
+            self._forcing_blocks = (forcing, self.to_blocks(forcing))
+        return self._forcing_blocks[1]
 
     def _nest_fields(self, outer):
         """The outer fields to relax toward this step, or None to skip the
@@ -550,7 +601,11 @@ class Simulator:
 
     def _debug_checks(self) -> None:
         if self.cfg["debugging.check_velocity_fields"]:
-            n_rogue, max_rel = checks.check_velocity_fields(self.state, self.grid_arrays["node_mask"])
+            owned = None if self.mesh is None else self.mesh.owned
+            n_rogue, max_rel = checks.check_velocity_fields(
+                self.state, self.grid_arrays["node_mask"], owned=owned)
+            if self.mesh is not None:
+                n_rogue, max_rel = self.mesh.sum_all(n_rogue), self.mesh.max_all(max_rel)
             if int(n_rogue) > 0:
                 self.log.debug(
                     f"Rogue velocity step={self.pcpt}: {int(n_rogue)} nodes, "
@@ -566,7 +621,7 @@ class Simulator:
         pv, self._pending_viol = self._pending_viol, None
         if pv is None:
             return
-        flags = pv.cpu().numpy()
+        flags = pv.cpu().numpy() if self.mesh is None else self.mesh.max_all(pv)
         if flags.any():
             self._crash_dump(checks.describe(flags, self.dyn.use_young_ice))
 
@@ -575,7 +630,7 @@ class Simulator:
         checkFields, fe.cpp:14661-14860), incl. the targeted single-cell
         printout behind debugging.test_element_number."""
         hstate = self.host_state()
-        lf = to_host(self.last_forcing)
+        lf = self.gather(self.last_forcing)
         itest = self.cfg["debugging.test_element_number"]
         if itest >= 0:
             j, i = divmod(int(itest), self.grid.nx)
@@ -593,15 +648,16 @@ class Simulator:
             assimilate_slab_ocean,
         )
 
-        mask = self.grid_arrays["mask"]
+        # on the global state and grid, as on one device
+        mask = torch.as_tensor(self.grid.mask, dtype=self.dtype, device=self.device)
         forcing = self.forcing_provider(self.current_time, self.time_init)
         mu = self.cfg["thermo.freezingpoint_mu"]
         fp = lambda sss: -mu * sss  # noqa: E731  (linear freezing point)
-        self.state = assimilate_slab_ocean(
-            self.cfg, self.state, forcing.ocean_temp, forcing.ocean_salt, fp
+        state = assimilate_slab_ocean(
+            self.cfg, self._global_state(), forcing.ocean_temp, forcing.ocean_salt, fp
         )
-        self.state = assimilate_ice(self.cfg, self.grid, self.state, mask, self.time_init)
-        self.state = init_state.check_consistency(self.cfg, self.state, mask)
+        state = assimilate_ice(self.cfg, self.grid, state, mask, self.time_init)
+        self.state = self.to_blocks(init_state.check_consistency(self.cfg, state, mask))
 
     def assimilate(self, obs_conc) -> None:
         """Assimilate an observed concentration analysis (host array or
@@ -610,9 +666,9 @@ class Simulator:
         re-check consistency."""
         from nextsim_tpu_torch.model.init_ice_datasets import assimilate_conc
 
-        mask = self.grid_arrays["mask"]
-        self.state = assimilate_conc(self.state, obs_conc, mask, min_h=self.cfg["dynamics.min_h"])
-        self.state = init_state.check_consistency(self.cfg, self.state, mask)
+        mask = torch.as_tensor(self.grid.mask, dtype=self.dtype, device=self.device)
+        state = assimilate_conc(self._global_state(), obs_conc, mask, min_h=self.cfg["dynamics.min_h"])
+        self.state = self.to_blocks(init_state.check_consistency(self.cfg, state, mask))
 
     def _check_outputs(self, skip_moorings_means: bool = False) -> None:
         """Per-step output handling (reference: checkOutputs, fe.cpp:
@@ -632,7 +688,7 @@ class Simulator:
             cadence = min(d.output_dt_days for d in self.drifters)
             cadence = max(cadence, self.dt * dates.DAYS_IN_SEC)
             if t - self._drifter_last_move >= cadence - 1e-9:
-                ut_u, ut_v, conc = to_host((self.state.ut_u, self.state.ut_v, self.state.conc))
+                ut_u, ut_v, conc = self.gather((self.state.ut_u, self.state.ut_v, self.state.conc))
                 if self._drifter_ut_prev is None:
                     self._drifter_ut_prev = (np.zeros_like(ut_u), np.zeros_like(ut_v))
                 du = ut_u - self._drifter_ut_prev[0]
@@ -685,7 +741,7 @@ class Simulator:
 
             write_restart(self, name="final")
         for d in self.drifters:
-            if d.records:
+            if d.records and multihost.is_writer():
                 d.write_netcdf(os.path.join(cfg["output.exporter_path"], f"Drifters_{d.tag}.nc"))
         # every asynchronously-submitted snapshot/restart must be on disk
         # (and any worker IO error surfaced) before the run is declared done

@@ -47,7 +47,7 @@ def _kansas_m(x):
 
 def _psi_m_paulson(z):
     """Paulson (1970) momentum psi: Kansas unstable, linear stable."""
-    x = (1.0 - 16.0 * ties.minimum(z, 0.0)) ** 0.25
+    x = ties.pow(1.0 - 16.0 * ties.minimum(z, 0.0), 0.25)
     return torch.where(z < 0.0, _kansas_m(x), -5.0 * ties.maximum(z, 0.0))
 
 
@@ -68,8 +68,8 @@ def _psi_convective(y):
 def _psi_m_coare(z):
     """COARE blended psi_m (Fairall et al. 2003, Eq. A3/A4)."""
     zn = ties.minimum(z, 0.0)
-    psik = _kansas_m((1.0 - 15.0 * zn) ** 0.25)
-    psic = _psi_convective((1.0 - 10.15 * zn) ** (1.0 / 3.0))
+    psik = _kansas_m(ties.pow(1.0 - 15.0 * zn, 0.25))
+    psic = _psi_convective(ties.pow(1.0 - 10.15 * zn, 1.0 / 3.0))
     f = zn * zn / (1.0 + zn * zn)
     unstable = (1.0 - f) * psik + f * psic
     zp = ties.maximum(z, 0.0)
@@ -82,13 +82,13 @@ def _psi_h_coare(z):
     zn = ties.minimum(z, 0.0)
     x = torch.sqrt(torch.abs(1.0 - 15.0 * zn))
     psik = 2.0 * torch.log(0.5 * (1.0 + x))
-    psic = _psi_convective((1.0 - 34.15 * zn) ** (1.0 / 3.0))
+    psic = _psi_convective(ties.pow(1.0 - 34.15 * zn, 1.0 / 3.0))
     f = zn * zn / (1.0 + zn * zn)
     unstable = (1.0 - f) * psik + f * psic
     zp = ties.maximum(z, 0.0)
     c = ties.minimum(0.35 * zp, 50.0)
     stable = -(
-        (1.0 + 2.0 * zp / 3.0) ** 1.5 + 0.6667 * (zp - 14.28) * torch.exp(-c) + 8.525
+        ties.pow(1.0 + 2.0 * zp / 3.0, 1.5) + 0.6667 * (zp - 14.28) * torch.exp(-c) + 8.525
     )
     return torch.where(z < 0.0, unstable, stable)
 
@@ -99,7 +99,7 @@ _BH_A, _BH_B, _BH_C, _BH_D = 1.0, 2.0 / 3.0, 5.0, 0.35
 
 def _psi_m_ecmwf(z):
     zn = ties.minimum(z, 0.0)
-    unstable = _kansas_m((1.0 - 16.0 * zn) ** 0.25)
+    unstable = _kansas_m(ties.pow(1.0 - 16.0 * zn, 0.25))
     zp = ties.maximum(z, 0.0)
     stable = -(
         _BH_A * zp
@@ -115,7 +115,7 @@ def _psi_h_ecmwf(z):
     unstable = 2.0 * torch.log(0.5 * (1.0 + x))
     zp = ties.maximum(z, 0.0)
     stable = -(
-        (1.0 + 2.0 * _BH_A * zp / 3.0) ** 1.5
+        ties.pow(1.0 + 2.0 * _BH_A * zp / 3.0, 1.5)
         + _BH_B * (zp - _BH_C / _BH_D) * torch.exp(-ties.minimum(_BH_D * zp, 50.0))
         + _BH_B * _BH_C / _BH_D
         - 1.0
@@ -225,7 +225,7 @@ def turbulent_scales(scheme: str, u, sst, tair, sphuma, sphumw,
         zeta_t = ties.clip(rdiv(zt, L), -10.0, 10.0)
         if gust_beta > 0.0:
             bf = ties.maximum(rdiv(-g, tv) * ustar * wflux, 1e-9)
-            ug = gust_beta * (bf * gust_zi) ** (1.0 / 3.0)
+            ug = gust_beta * ties.pow(bf * gust_zi, 1.0 / 3.0)
             ublend = torch.sqrt(u * u + ug * ug)
         cd_sqrt = rdiv(kv, torch.log(rdiv(zu, z0)) - psi_m(zeta_u))
         ch_fac = rdiv(kv, torch.log(rdiv(zt, ties.maximum(z0t, 1e-9))) - psi_h(zeta_t))

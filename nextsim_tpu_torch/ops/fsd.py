@@ -201,12 +201,13 @@ def wave_breakup(
     h = ties.maximum(h, p.breakup_thick_min)
 
     # flexural-failure floe size limit (Mellor 1984 / Boutin 2018)
-    d_flex = 0.5 * (
+    d_flex = 0.5 * ties.pow(
         (math.pi**4)
         * p.floes_flex_young
         * _fast_pow(h, 3)
-        / (48.0 * phys.rhow * phys.g * (1.0 - poisson**2))
-    ) ** 0.25
+        / (48.0 * phys.rhow * phys.g * (1.0 - poisson**2)),
+        0.25,
+    )
     lam = wlbk
     tau_w = p.breakup_timescale_tuning
 
@@ -246,7 +247,7 @@ def wave_breakup(
             )
 
             def powe(base):
-                return torch.pow(torch.full_like(exponent, float(base)), exponent)
+                return ties.pow(torch.full_like(exponent, float(base)), exponent)
 
             den = powe(bins.up[j]) - powe(bins.low[0])
             for k in range(j + 1):

@@ -12,6 +12,11 @@ diagnostic. The substep loop goes through ``momentum_cuda.substep_loop``:
 the hand-written CUDA kernel for tensors on the GPU, the plain loop over
 ``_build_substep`` for tensors on the CPU.
 
+On a device mesh (``exchanger``, a ``parallel.seam.Seam``) the planes are a
+rank's ext block: the substep loop runs H substeps between ring exchanges,
+the smoother exchanges the velocity every H sweeps, and the planes the
+step changed are exchanged before returning (parallel/seam.py).
+
 Free drift (reference: updateFreeDriftVelocity, fe.cpp:10140-10176) is the
 cheap alternative path.
 """
@@ -345,13 +350,15 @@ def substep_setup(state, forcing, grid_arrays, dt: float, p: DynParams):
     return consts, carry
 
 
-def explicit_solve(state, forcing, grid_arrays, dt: float, p: DynParams):
+def explicit_solve(state, forcing, grid_arrays, dt: float, p: DynParams, exchanger=None):
     """One full dynamics step. Returns (state', diag_dict); ``grid_arrays``
-    as for ``substep_setup``."""
+    as for ``substep_setup``; ``exchanger`` a rank's ``seam.Seam`` on a
+    device mesh, else None."""
     node_mask = grid_arrays["node_mask"]
     node_dirichlet = grid_arrays["node_dirichlet"]
     consts, carry = substep_setup(state, forcing, grid_arrays, dt, p)
-    carry = momentum_cuda.substep_loop(
+    loop = momentum_cuda.substep_loop if exchanger is None else exchanger.substep_loop
+    carry = loop(
         consts, carry, p.substeps, dt / p.substeps, dt, grid_arrays["delta_x"],
         p.dynamics_type, p,
     )
@@ -371,7 +378,9 @@ def explicit_solve(state, forcing, grid_arrays, dt: float, p: DynParams):
     nbr_rden = rdiv(1.0, ties.maximum(
         mp[:-2, 1:-1] + mp[2:, 1:-1] + mp[1:-1, :-2] + mp[1:-1, 2:], 1.0
     ))
-    for _ in range(p.nit_ow):
+    for sweep in range(p.nit_ow):
+        if exchanger is not None and sweep % exchanger.halo_depth == 0:
+            exchanger.ring((vt_u, vt_v))
         up = stencil.pad1(vt_u)
         vp = stencil.pad1(vt_v)
         u_bar = (up[:-2, 1:-1] + up[2:, 1:-1] + up[1:-1, :-2] + up[1:-1, 2:]) * nbr_rden
@@ -402,6 +411,11 @@ def explicit_solve(state, forcing, grid_arrays, dt: float, p: DynParams):
         sigma=sigma,
         damage=damage,
     )
+    if exchanger is not None:
+        # transport reads these with a reach of 3 cells; the displacement
+        # waits for the exchange at the end of the step
+        exchanger.ring((state.vt_u, state.vt_v, state.sigma,
+                        state.damage if p.dynamics_type == "bbm" else None))
     diag = {"tau_ax": consts.tau_ax_diag, "tau_ay": consts.tau_ay_diag,
             "tau_wx": tau_wx, "tau_wy": tau_wy}
     return state, diag

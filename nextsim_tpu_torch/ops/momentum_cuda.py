@@ -699,7 +699,10 @@ def _nvcc() -> str:
 
 def build(flags=_NVCC_FLAGS) -> Path:
     """Compile the kernel into ``nextsim_tpu_torch/build/`` unless a library
-    built from the same source and flags is there; returns its path."""
+    built from the same source and flags is there; returns its path. The
+    ranks of a mesh that start together may each compile it (seconds for
+    this file); each writes its own temporary file and renames it into
+    place, so every rank loads a whole library."""
     global build_log
     tag = hashlib.sha256(_SRC.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     out = _BUILD_DIR / f"libmomentum_substep_{tag}.so"

@@ -46,7 +46,7 @@ def _fast_pow(x, e: float):
         return out if out is not None else torch.ones_like(x)
     if (2.0 * e) == int(2.0 * e) and 0 < e < 8:  # half-integer, e.g. 1.5
         return _fast_pow(x, e - 0.5) * torch.sqrt(x + 1e-20)
-    return x**e
+    return ties.pow(x, e)
 
 
 @dataclasses.dataclass(frozen=True)

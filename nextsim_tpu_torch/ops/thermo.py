@@ -52,7 +52,7 @@ def _cbrt(x):
     dtype is within one ulp of the JAX package's ``jnp.cbrt`` and equal to
     it on about 99% of inputs; a correctly rounded cube root (float64 pow
     refined by a Newton step) differs from it on about 20%."""
-    return torch.pow(x, 1.0 / 3.0)
+    return ties.pow(x, 1.0 / 3.0)
 
 
 def freezing_point(p: ThermoParams, sss):

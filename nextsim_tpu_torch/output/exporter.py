@@ -9,7 +9,8 @@ binary writer (same .bin/.dat layout) is provided for cross-validation
 tooling (see output/ref_binary.py).
 
 The counterpart of nextsim_tpu/output/exporter.py: the same files, from
-host copies of the port's tensors.
+host copies of the port's tensors (on a device mesh gathered from every
+rank, and written by rank 0).
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ from typing import Optional
 
 import numpy as np
 
-from nextsim_tpu_torch.core.state import to_host
 from nextsim_tpu_torch.core.variables import SPECS
+from nextsim_tpu_torch.parallel.multihost import is_writer
 from nextsim_tpu_torch.utils import dates
 
 
@@ -48,7 +49,6 @@ def export_snapshot(sim, name: Optional[str] = None) -> str:
     """
     cfg = sim.cfg
     path = cfg["output.exporter_path"]
-    os.makedirs(path, exist_ok=True)
     if name is None:
         if cfg["output.datetime_in_filename"]:
             name = dates.datenum_to_string(sim.current_time)
@@ -85,7 +85,7 @@ def export_snapshot(sim, name: Optional[str] = None) -> str:
         # all diagnostic planes of the last step (reference: exportResults
         # exports every diagnostic ModelVariable when output.save_diagnostics
         # is set, fe.cpp:7348-7352)
-        diag = to_host(sim.diag)
+        diag = sim.gather(sim.diag)
         for k, v in diag.items():
             if v is not None and getattr(v, "ndim", 0) >= 2:
                 arrays[f"diag_{k}"] = np.asarray(v)
@@ -93,12 +93,15 @@ def export_snapshot(sim, name: Optional[str] = None) -> str:
     if cfg["output.save_forcing_fields"] and getattr(sim, "last_forcing", None) is not None:
         import dataclasses as _dc
 
-        last_forcing = to_host(sim.last_forcing)
+        last_forcing = sim.gather(sim.last_forcing)
         for f in _dc.fields(last_forcing):
             v = getattr(last_forcing, f.name)
             if v is not None:
                 arrays[f"forcing_{f.name}"] = np.asarray(v)
     fname = os.path.join(path, f"field_{name}.npz")
+    if not is_writer():
+        return fname
+    os.makedirs(path, exist_ok=True)
     if cfg["output.async_io"]:
         from nextsim_tpu_torch.utils import async_writer
 

@@ -23,9 +23,11 @@ RUN_r04, 33.7 s of a 43.7 s run spent in outputs).
 
 The counterpart of nextsim_tpu/output/moorings.py: the running means are
 torch tensors on the model's device, and each written record makes one host
-copy of them. One process writes (rank 0 of 1) until the multi-device slice
-(ROADMAP A.14); the per-process slab output is reachable through explicit
-``process_rank``/``process_count``."""
+copy of them. On a device mesh (``mesh``, the rank's ``seam.Seam``) each rank
+accumulates its ext block and a record gathers the owned blocks on every
+rank; rank 0 writes the file, or, under ``moorings.parallel_output``, every
+rank writes its y-slab patch (``process_rank``/``process_count``) and
+``merge_parallel_moorings`` joins them."""
 
 from __future__ import annotations
 
@@ -173,9 +175,11 @@ class Moorings:
     """Running-mean accumulator + regular-grid NetCDF writer."""
 
     def __init__(self, cfg, grid, time_init: float, process_rank: Optional[int] = None,
-                 process_count: Optional[int] = None):
+                 process_count: Optional[int] = None, mesh=None):
         self.cfg = cfg
         self.grid = grid
+        # host copy of the running sums: the gathered global value on a mesh
+        self._gather = to_host if mesh is None else mesh.gather
         self.snapshot = cfg["moorings.snapshot"]
         # parallel output (reference: moorings.parallel_output — every rank
         # writes its own patch instead of gathering to rank 0,
@@ -388,7 +392,7 @@ class Moorings:
 
     def _write_record(self, t: float) -> str:
         # the one host copy of the running sums per written record
-        accum = to_host(self._accum)
+        accum = self._gather(self._accum)
         fields = {}
         for key, acc in accum.items():
             mean = np.asarray(acc) / self._count

@@ -173,8 +173,9 @@ def write_state(sim, name: str, precision: str = "float") -> str:
     [u...; v...]."""
     from nextsim_tpu_torch.core.variables import SPECS
 
+    from nextsim_tpu_torch.parallel.multihost import is_writer
+
     path = os.path.join(sim.cfg["output.exporter_path"], f"field_{name}")
-    os.makedirs(sim.cfg["output.exporter_path"], exist_ok=True)
     records: List[Tuple[str, str, np.ndarray]] = []
     # Time and Misc records lead (fe.cpp:9638-9680 restart layout)
     records.append(("Time", "double", np.array([sim.current_time])))
@@ -191,5 +192,7 @@ def write_state(sim, name: str, precision: str = "float") -> str:
         if fname in ("vt_v", "ut_v"):
             continue
         records.append((spec.export_name, precision, arr.ravel()))
-    write_file(path, records)
+    if is_writer():  # every rank gathers (host_state), rank 0 writes
+        os.makedirs(sim.cfg["output.exporter_path"], exist_ok=True)
+        write_file(path, records)
     return path + ".bin"

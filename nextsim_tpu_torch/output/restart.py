@@ -11,6 +11,10 @@ The npz layout and its ``__meta__`` block are the JAX package's, so a restart
 moves between the two packages in both directions. ``restart.format=orbax``
 (the JAX package's sharded checkpoint) is JAX-only and raises here.
 
+On a device mesh every rank gathers the global state and rank 0 writes the
+file; every rank reads the whole file and keeps its block, so a restart
+moves between runs on any mesh and on one device.
+
 Restart types (reference: options.cpp restart.type):
 * extend   — continue for `simul.duration` from the restart's time
 * continue — duration counted from the original time_init
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from nextsim_tpu_torch.core.state import State, to_host
+from nextsim_tpu_torch.parallel.multihost import is_writer
 from nextsim_tpu_torch.utils import dates
 
 
@@ -72,7 +77,6 @@ def write_restart(sim, name: Optional[str] = None) -> str:
     cfg = sim.cfg
     _check_format(cfg)
     path = _restart_dir(cfg)
-    os.makedirs(path, exist_ok=True)
     if name is None:
         if cfg["restart.datetime_in_filename"]:
             name = dates.datenum_to_string(sim.current_time)
@@ -93,6 +97,9 @@ def write_restart(sim, name: Optional[str] = None) -> str:
         arrays["__wim_nfloes"] = to_host(sim._wim_nfloes)
         arrays["__wim_sdf"] = to_host(sim.wim.sdf)
     fname = os.path.join(path, f"restart_{name}.npz")
+    if not is_writer():
+        return fname
+    os.makedirs(path, exist_ok=True)
     return save_npz_restart(fname, restart_meta(sim), arrays, async_io=cfg["output.async_io"])
 
 
@@ -127,7 +134,7 @@ def _apply_restart(sim, data, meta) -> None:
             torch.as_tensor(np.array(data[f.name]), dtype=sim.dtype, device=sim.device)
             if f.name in data else None
         )
-    sim.state = State(**kw)
+    sim.state = sim.to_blocks(State(**kw))
     for i, d in enumerate(sim.drifters):
         if d.ignore_restart:
             continue  # drifters.<flavour>_ignore_restart: re-init

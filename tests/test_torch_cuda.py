@@ -31,6 +31,11 @@ mEVP's ``(vtm - vt) / (beta + 1)`` is a division by a Python scalar, which
 torch on CUDA computes through its reciprocal: rtol 1e-6 of the field's
 magnitude there.
 
+A device mesh's blocks: the kernel on ext blocks (rings of H + 1 cells,
+cut at the domain's edge) in H-substep calls equals H-substep calls over the
+whole grid on the owned cells, bitwise, for corner, edge and interior
+blocks.
+
 Reverse mode on the card (``momentum_cuda.SubstepLoop``): the gradient
 through ``substep_loop`` against straight autograd through the plain loop
 on the card, for the three rheologies in float32 and float64, and the
@@ -44,6 +49,7 @@ import torch
 from nextsim_tpu_torch import Config, Simulator
 from nextsim_tpu_torch.core.state import to_host
 from nextsim_tpu_torch.ops import momentum, momentum_cuda, thermo
+from nextsim_tpu_torch.parallel import seam
 
 pytestmark = pytest.mark.gpu
 
@@ -101,6 +107,35 @@ def test_kernel_matches_plain(cuda, dyn_type, dtype_name, steps):
             torch.testing.assert_close(o, r, rtol=1e-6, atol=1e-6 * float(r.abs().max()))
         else:
             torch.testing.assert_close(o, r, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("halo_depth", [1, 3])
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+@pytest.mark.parametrize("dyn_type", ["bbm", "evp", "mevp"])
+def test_kernel_on_ext_blocks_equals_the_whole_grid(cuda, dyn_type, dtype_name, halo_depth):
+    """A device mesh's substep loop without the ranks: on every block of a
+    3x3 mesh over 36^2 cells (corner, edge and interior blocks), the
+    constants set up on the ext block (rings of H + 1 cells, the domain's
+    edge where no neighbour is) and the carry of the whole grid at the start
+    of each group of H substeps, as an exchange leaves it; one kernel call of
+    H substeps on the block gives the owned cells and nodes of H-substep
+    calls over the whole grid, bitwise."""
+    sim, consts, carry = _setup(dyn_type, dtype_name, **{"grid.nx": 36, "grid.ny": 36,
+                                                          "ideal_simul.constant_wind_v": -6.0})
+    forcing = sim._next_forcing()
+    ga = dict(sim.grid_arrays, cohesion=sim.c_fix + sim.c_alea * sim.state.random_number)
+    starts = [carry]
+    for _ in range(4):  # the whole grid, H substeps a call
+        starts.append(_loop(momentum_cuda.substep_loop, sim, consts, starts[-1], halo_depth))
+    for rank in range(9):
+        lay = seam.BlockLayout(36, 36, 3, 3, *divmod(rank, 3), seam.ring_width(halo_depth))
+        ext = lay.to_ext
+        block_consts, _ = momentum.substep_setup(ext(sim.state), ext(forcing), ext(ga), sim.dt, sim.dyn)
+        for g in range(4):
+            out = _loop(momentum_cuda.substep_loop, sim, block_consts, ext(starts[g]), halo_depth)
+            for name, o, r in zip(momentum_cuda._STATE, out, starts[g + 1]):
+                torch.testing.assert_close(lay.owned(o), lay.owned(ext(r)), rtol=0, atol=0,
+                                           msg=lambda m: f"block {rank}, group {g}, {name}: {m}")
 
 
 @pytest.mark.parametrize("tile,k,steps", [(None, None, 11), (None, None, 121), ((16, 20), 4, 7),

@@ -458,18 +458,21 @@ def test_constant_forcing_matches_jax():
 # what the port does not have raises
 # ---------------------------------------------------------------------------
 
+# a mesh runs one rank per block: in one process it is an error that names
+# torchrun; the WIM on a mesh and bfloat16 are still to be ported
 UNPORTED = {
-    "mesh": {"tpu.mesh_shape": "2x4"},
-    "shard_map": {"tpu.partition_mode": "shard_map"},
-    "bfloat16": {"tpu.dtype": "bfloat16"},
+    "mesh": ({"tpu.mesh_shape": "2x4"}, ValueError, "torchrun --nproc-per-node 8"),
+    "shard_map": ({"tpu.mesh_shape": "2x2", "tpu.partition_mode": "shard_map",
+                   "nextwim.use_wim": True}, NotImplementedError, "ROADMAP A.14b"),
+    "bfloat16": ({"tpu.dtype": "bfloat16"}, NotImplementedError, "ROADMAP A.16"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_subsystems_raise(name):
-    over = dict(SLICES["toy_square32"], **UNPORTED[name])
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        PSimulator(PConfig(overrides=over), device="cpu")
+    over, error, match = UNPORTED[name]
+    with pytest.raises(error, match=match):
+        PSimulator(PConfig(overrides=dict(SLICES["toy_square32"], **over)), device="cpu")
 
 
 # the options that raised before thermodynamics, the outputs, the datasets,
@@ -698,6 +701,9 @@ SLICE_MODULES = [
     "nextsim_tpu_torch.validation", "nextsim_tpu_torch.validation.deformation",
     "nextsim_tpu_torch.validation.ref_compare", "nextsim_tpu_torch.tools.deformation_stats",
     "nextsim_tpu_torch.tools.plot_fields", "nextsim_tpu_torch.tools.nan_bisect",
+    "nextsim_tpu_torch.parallel", "nextsim_tpu_torch.parallel.distributed",
+    "nextsim_tpu_torch.parallel.halo", "nextsim_tpu_torch.parallel.multihost",
+    "nextsim_tpu_torch.parallel.seam",
 ]
 
 
