@@ -123,12 +123,31 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    kernel launches by rank (ranks that share a card time-slice it: no
    scaling numbers); configs/toy.cfg through the CLI on 4 ranks against one
    process, every array of the restart, snapshots, moorings and drifters
-   bitwise equal.
+   bitwise equal;
+25. the wave path on a mesh: phase 14's configuration (608^2, ERA5 + TOPAZ4
+   + ETOPO + ERA-Interim waves, thermo on with melt_type 3, 20 FSD bins, the
+   WIM 25 x 16 co-located every 20 steps) on a 2x2 mesh of 4 ranks, H = 6,
+   21 steps (two WIM exchanges, the WIM on its own layout of the blocks):
+   the gathered state and the WIM's dfloe, broken, tau_x and tau_y against
+   the single-device Simulator over the same steps (bitwise, or within
+   MESH_WAVE_RTOL, as printed); the kernel on rank 0's ext block of the
+   step-20 state against the plain loop; ms/step between exchanges, seconds
+   a WIM exchange, the WIM's ring bytes and ``Seam.seconds`` by rank;
+26. the member mesh: phase 19's configuration, 4 members on the layouts (4,)
+   and (2, 1, 2) (4 ranks each), 3 steps, every member bitwise equal to
+   phase 19's single-device ensemble after 3 steps; the (4,) checkpoint read
+   by phase 19's ensemble equals it, and one more step stays equal;
+27. a mesh gradient: phase 23's thermo-off d(mean KE)/d(wind_u) through
+   ``raw_step_fn`` on a 2x2 mesh, H = 6, float32 and float64, each rank's
+   loss on its own nodes and ``Seam.fold`` for the global gradient, against
+   phase 23's single-device gradient (relative L2 within MESH_GRAD_REL_L2);
+   ms, kernels and peak memory by rank. Times of ranks that share one card
+   are no scaling numbers.
 
 The line before the last is the JSON record of the kernel (its launches
-summed over the paths of phases 5, 8, 11, 14, 17, 19, 22, 23 and 24 (the
-mesh path summed over its ranks), each counted from zero, none of them
-zero); the last line is
+summed over the paths of phases 5, 8, 11, 14, 17, 19, 22, 23, 24, 25, 26
+and 27 (the mesh paths summed over their ranks), each counted from zero,
+none of them zero); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1558,7 +1577,8 @@ def ensemble_run(tmp: Path, smi: str, dataset_ms: float):
     """Phase 19: ``BatchedEnsemble`` on configs/arctic_10km.cfg with ERA5 +
     TOPAZ4 + ETOPO (the phase-11 files), 4 members for 12 steps, a checkpoint
     at step 6 resumed into the same object; returns (the ensemble, kernel
-    launches of the 12 steps)."""
+    launches of the 12 steps, every member's state after
+    MESH_ENSEMBLE_STEPS steps as host arrays, for phase 26)."""
     import dataclasses
 
     import torch
@@ -1587,8 +1607,12 @@ def ensemble_run(tmp: Path, smi: str, dataset_ms: float):
             ms.append(1e3 * (time.perf_counter() - a))
         return ms
 
+    from nextsim_tpu_torch import state_to_numpy
+
     momentum_cuda.launches = 0
-    step_ms = steps(half)
+    step_ms = steps(MESH_ENSEMBLE_STEPS)
+    early = [state_to_numpy(ens.member_state(m)) for m in range(ENSEMBLE_MEMBERS)]
+    step_ms += steps(half - MESH_ENSEMBLE_STEPS)
     ens.write_restart("half")
     step_ms += steps(ENSEMBLE_STEPS - half)
     launches = momentum_cuda.launches
@@ -1647,7 +1671,7 @@ def ensemble_run(tmp: Path, smi: str, dataset_ms: float):
           f"{', '.join(f'{d:.3f}' for d in dtair)} K; {n_rec} statistics records; restart at step {half} resumed "
           f"bitwise; one step under torch.profiler: {n_launch} launches, device busy {busy:.2f} ms, idle share "
           f"{1.0 - busy / med:.3f} of the unprofiled step ({1e3 * wall:.1f} ms profiled wall); {smi}")
-    return ens, launches
+    return ens, launches, early
 
 
 def ensemble_members_vs_simulators(smi: str) -> None:
@@ -1923,9 +1947,10 @@ def gradient_phase(smi: str) -> int:
     (relative L2 within GRAD_REL_L2_F32) and float64 (max norm within
     GRAD_REL_MAX_F64); a directional central difference in float64
     (GRAD_FD_RTOL_F64 at GRAD_FD_EPS); a 3-step rollout. Prints ms, kernel
-    launches, device busy and peak memory of each. Returns the kernel's
+    launches, device busy and peak memory of each. Returns (the kernel's
     launches on the gradient path (the Function's timed calls, each counted
-    from zero)."""
+    from zero), the thermo-off gradients through SubstepLoop by dtype as
+    host arrays, for phase 27)."""
     import torch
 
     from nextsim_tpu_torch.ops import momentum_cuda
@@ -1944,6 +1969,8 @@ def gradient_phase(smi: str) -> int:
         if n != per_loop:
             raise AssertionError(f"gradient {name}: {n} kernel launches, expected {per_loop}")
         launches += n
+        if name == "thermo off":
+            single = {"float32": g.cpu().numpy()}
         with straight_autograd():  # warm too: its first call grows the allocator's pool by GiBs
             g_ref, ms_ref, n_ref, peak_ref, prof_ref = measure_gradient(grad, profile=True)
         if n_ref:
@@ -1972,6 +1999,7 @@ def gradient_phase(smi: str) -> int:
     sim.step()
     grad, loss, wind = ke_gradient(sim)
     g, ms, n, peak, _ = measure_gradient(grad)
+    single["float64"] = g.cpu().numpy()
     per_loop64 = momentum_cuda.launches_for(120, 464, 464, torch.float64)
     if n != per_loop64:
         raise AssertionError(f"gradient f64: {n} kernel launches, expected {per_loop64}")
@@ -1999,7 +2027,7 @@ def gradient_phase(smi: str) -> int:
                       f"{v:.9e} at eps {e:g} ({abs(ad - v) / abs(v):.3e})" for e, v in fds.items()))
     phase("grad", f"d(mean KE)/d(wind_u) through raw_step_fn at 464^2, BBM, 120 substeps, in "
           f"{time.perf_counter() - t_phase:.1f} s: " + "; ".join(report) + f"; {smi}")
-    return launches
+    return launches, single
 
 
 # --- 24. multi-device runs -----------------------------------------------------
@@ -2196,6 +2224,382 @@ def mesh_phase(smi: str):
           f"{time.perf_counter() - t_phase:.1f} s; times of ranks that share one card are no scaling "
           f"numbers; {smi}")
     return sum(r["launches"] for r in records), kernel_err
+
+
+# --- 25-27. the WIM on a mesh, the member mesh, gradients on a mesh ----------
+
+MESH_WAVE_STEPS = 21  # WIM exchanges at steps 0 and 20
+# outputs off: the phase compares states; moorings and drifters are phase 14's
+MESH_WAVE_OVER = {"moorings.use_moorings": False, "drifters.use_equally_spaced_drifters": False}
+# If the gathered wave-path state is not bitwise the single device's, each
+# field within this share of its largest magnitude (float32, 21 steps; the
+# BBM failure branch may amplify an ulp of the wave stress)
+MESH_WAVE_RTOL = 1e-3
+MESH_ENSEMBLE_STEPS = 3
+# phase 23's gradient against the mesh's, relative L2 (the mesh's substep
+# loop runs H = 6 substeps a call, so float32 sums associate otherwise)
+MESH_GRAD_REL_L2 = {"float32": 1e-5, "float64": 1e-12}
+
+
+def _wave_config(tmp: Path, **over):
+    """Phase 14's wave-path configuration (configs/arctic_10km.cfg with
+    WAVE_CFG on the phase-11 and phase-14 files), outputs off, with ``over``."""
+    from nextsim_tpu_torch import Config
+
+    overrides = dict(a.split("=", 1) for a in DATASET_ARGS)
+    overrides.update(MESH_WAVE_OVER, **over)
+    return Config.from_files(str(ROOT / "configs" / "arctic_10km.cfg"), str(tmp / "waves.cfg"), overrides=overrides)
+
+
+def mesh_waves_rank(tmp, out_dir):
+    """One rank of phase 25: the wave path on this rank's block of a 2x2
+    mesh for MESH_WAVE_STEPS steps through ``Simulator.step``, each step
+    synchronized and timed, each WIM exchange timed with its ring bytes;
+    the kernel launches counted from zero over the steps. Rank 0 saves the
+    gathered state and the WIM's dfloe, broken, tau_x and tau_y, and holds
+    the kernel against the plain loop on its ext block of the step-20 state
+    after the count. Every rank writes its record to ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from nextsim_tpu_torch import Simulator
+    from nextsim_tpu_torch.ops import momentum, momentum_cuda
+    from nextsim_tpu_torch.parallel.distributed import local_device
+
+    rank = dist.get_rank()
+    device = local_device("cuda")
+    t0 = time.perf_counter()
+    sim = Simulator(_wave_config(Path(tmp), **{"tpu.mesh_shape": "2x2", "tpu.halo_depth": 6,
+                                               "output.exporter_path": str(Path(out_dir) / "run")}), device=device)
+    init_s = time.perf_counter() - t0
+    exchange, exchanges = sim._wim_exchange, []
+
+    def timed_exchange(forcing=None):
+        torch.cuda.synchronize(device)
+        b0, s0, a = sim.wim.mesh.stats.bytes, sim.wim.mesh.seconds, time.perf_counter()
+        exchange(forcing)
+        torch.cuda.synchronize(device)
+        exchanges.append({"wall": time.perf_counter() - a, "ring_bytes": sim.wim.mesh.stats.bytes - b0,
+                          "ring_s": sim.wim.mesh.seconds - s0, "rings": sim.wim.mesh.exchanges})
+
+    sim._wim_exchange = timed_exchange
+    dist.barrier()
+    momentum_cuda.launches = 0
+    step_ms, snap = [], None
+    for k in range(MESH_WAVE_STEPS):
+        if k == MESH_WAVE_STEPS - 1:  # the step-20 state and the next step's forcing, for the check
+            state = sim.state.replace(**{f: getattr(sim.state, f).clone() for f in sim.state.__dataclass_fields__
+                                         if getattr(sim.state, f) is not None})
+            snap = (state, sim._next_forcing(), sim.c_fix + sim.c_alea * state.random_number)
+        a = time.perf_counter()
+        sim.step()
+        torch.cuda.synchronize(device)
+        step_ms.append(1e3 * (time.perf_counter() - a))
+    launches = momentum_cuda.launches
+    rec = {"rank": rank, "device": str(device), "backend": dist.get_backend(), "block": list(sim.state.conc.shape),
+           "wim_block": list(sim.wim.sdf.shape), "init_s": init_s, "launches": launches, "step_ms": step_ms,
+           "exchanges": exchanges, "seam_s": sim.mesh.seconds, "seam_bytes": sim.mesh.stats.bytes,
+           "wim_ring_s": sim.wim.mesh.seconds, "wim_ring_bytes": sim.wim.mesh.stats.bytes}
+    host = sim.host_state()
+    wim = sim.wim.gather({"dfloe": sim.wim.ice["dfloe"], "broken": sim.wim.ice["broken"],
+                          "tau_x": sim.wim_diag["tau_x"], "tau_y": sim.wim_diag["tau_y"]})
+    if rank == 0:
+        arrays = {f: getattr(host, f) for f in host.__dataclass_fields__ if getattr(host, f) is not None}
+        np.savez(Path(out_dir) / "mesh_waves.npz", **arrays, **{f"wim_{k}": v for k, v in wim.items()})
+        state, forcing, cohesion = snap
+        ga = dict(sim.grid_arrays, cohesion=cohesion)
+        consts, carry = momentum.substep_setup(state, forcing, ga, sim.dt, sim.dyn)
+        args = (sim.mesh.halo_depth, sim.dt / sim.dyn.substeps, sim.dt, sim.grid.dx, "bbm", sim.dyn)
+        got = momentum_cuda.substep_loop(consts, carry, *args)
+        ref = momentum_cuda.substep_loop_reference(consts, carry, *args)
+        rec["kernel_err"] = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(rec))
+
+
+def mesh_waves_phase(tmp: Path, smi: str):
+    """Phase 25: the wave path of phase 14 (608^2, ERA5 + TOPAZ4 + ETOPO +
+    ERA-Interim waves, thermo on with melt_type 3, 20 FSD bins, the WIM
+    25 x 16 co-located every 20 steps) on a 2x2 mesh of 4 ranks on the card,
+    H = 6, 21 steps (two WIM exchanges), against the single-device
+    Simulator over the same steps. Returns (kernel launches of the mesh run
+    summed over the ranks, the kernel's max |diff| on rank 0's ext block)."""
+    import torch
+
+    from nextsim_tpu_torch import Simulator, state_to_numpy
+    from nextsim_tpu_torch.parallel.distributed import run_world
+
+    t_phase = time.perf_counter()
+    world = tmp / "mesh_waves"
+    world.mkdir()
+    run_world(mesh_waves_rank, MESH_RANKS, args=(str(tmp), str(world)), device="cuda", timeout=600)
+    t_world = time.perf_counter() - t_phase
+    recs = [json.loads((world / f"rank{r}.json").read_text()) for r in range(MESH_RANKS)]
+    t0 = time.perf_counter()
+    sim = Simulator(_wave_config(tmp, **{"output.exporter_path": str(tmp / "mesh_waves_1")}), device="cuda")
+    for _ in range(MESH_WAVE_STEPS):
+        sim.step()
+    sync()
+    t_ref = time.perf_counter() - t0
+    ref = state_to_numpy(sim.state)
+    ref.update({f"wim_{k}": v.cpu().numpy() for k, v in (("dfloe", sim.wim.ice["dfloe"]),
+                                                         ("broken", sim.wim.ice["broken"]),
+                                                         ("tau_x", sim.wim_diag["tau_x"]),
+                                                         ("tau_y", sim.wim_diag["tau_y"]))})
+    n_broken = int((sim.wim.ice["broken"] > 0.5).sum())
+    del sim
+    torch.cuda.empty_cache()
+    worst, bitwise = {}, True
+    with np.load(world / "mesh_waves.npz") as got:
+        for f, v in ref.items():
+            g = got[f]
+            if g.shape != v.shape or not np.isfinite(g).all():
+                raise AssertionError(f"mesh waves: {f} of shape {g.shape} or not finite")
+            d = float(np.abs(g.astype(np.float64) - v).max())
+            worst[f] = d
+            bitwise &= bool(np.array_equal(g, v))
+            if d > MESH_WAVE_RTOL * max(float(np.abs(v).max()), 1e-30):
+                raise AssertionError(f"mesh waves: {f} differs from the single device by {d:.3e}")
+    if n_broken == 0:
+        raise AssertionError("mesh waves: the WIM broke no floes")
+    if any(r["launches"] <= 0 for r in recs):
+        raise AssertionError(f"mesh waves: a rank ran without the kernel: {[r['launches'] for r in recs]}")
+    kernel_err = recs[0]["kernel_err"]
+    if kernel_err != 0.0:
+        raise AssertionError(f"mesh waves: the kernel on rank 0's ext block is {kernel_err} off the plain loop")
+    between = [float(np.median(r["step_ms"][1:MESH_WAVE_STEPS - 1])) for r in recs]
+    phase("mesh waves", f"phase 14's wave path (608^2, WIM 25 x 16 co-located, 20 bins) on a 2x2 mesh, H = 6, "
+          f"{MESH_WAVE_STEPS} steps: blocks {[tuple(r['block']) for r in recs]}, WIM blocks "
+          f"{[tuple(r['wim_block'][2:]) for r in recs]} (rings of 4, y-periodic), {recs[0]['backend']} on "
+          f"{sorted({r['device'] for r in recs})}; init by rank {[round(r['init_s'], 1) for r in recs]} s; "
+          f"ms/step between exchanges (median of steps 1-19) by rank {[round(m, 2) for m in between]}; WIM exchanges "
+          f"by rank {[[round(e['wall'], 3) for e in r['exchanges']] for r in recs]} s, their ring exchanges "
+          f"{[[round(e['ring_s'], 3) for e in r['exchanges']] for r in recs]} s, ring bytes a WIM exchange by rank "
+          f"{[[e['ring_bytes'] for e in r['exchanges']] for r in recs]}; Seam.seconds of the sea ice by rank "
+          f"{[round(r['seam_s'], 3) for r in recs]} s ({[r['seam_bytes'] for r in recs]} bytes); kernel launches by "
+          f"rank {[r['launches'] for r in recs]}; the world took {t_world:.1f} s; {smi}")
+    phase("mesh waves", f"against the single-device Simulator over the same {MESH_WAVE_STEPS} steps ({t_ref:.1f} s, "
+          f"{n_broken} broken cells): {'bitwise equal' if bitwise else f'not bitwise equal (tolerance {MESH_WAVE_RTOL:g} of each field magnitude, float32)'}; "
+          f"max |diff| by field {json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}; the kernel on rank 0's "
+          f"ext block of the step-20 state equals the plain loop bitwise (bbm, 6 substeps); times of ranks that "
+          f"share one card are no scaling numbers; {smi}")
+    return sum(r["launches"] for r in recs), kernel_err
+
+
+def mesh_ensemble_rank(cfg_path, overrides, cases, out_dir):
+    """One rank of phase 26: each (name, mesh, steps, checkpoint) case, a
+    ``BatchedEnsemble`` of ENSEMBLE_MEMBERS members on the member mesh
+    ``mesh``, ``steps`` steps timed and counted; rank 0 saves every member's
+    state; with ``checkpoint``, the ensemble writes it, steps once more and
+    rank 0 saves the members again. Records to ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from nextsim_tpu_torch import Config
+    from nextsim_tpu_torch.ensemble.batched import BatchedEnsemble
+    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.parallel.distributed import local_device
+
+    rank = dist.get_rank()
+    device = local_device("cuda")
+    recs = []
+
+    def save(ens, name):
+        members = [ens.member_state(m) for m in range(ens.n)]
+        if rank == 0:
+            np.savez(Path(out_dir) / f"{name}.npz", **{f"{m}_{f}": getattr(st, f).cpu().numpy() for m, st in
+                                                       enumerate(members) for f in st.__dataclass_fields__
+                                                       if getattr(st, f) is not None})
+
+    for name, mesh, steps, checkpoint in cases:
+        t0 = time.perf_counter()
+        ens = BatchedEnsemble(Config.from_files(cfg_path, overrides=overrides), ENSEMBLE_MEMBERS, device=device,
+                              mesh=tuple(mesh))
+        init_s = time.perf_counter() - t0
+        dist.barrier()
+        momentum_cuda.launches = 0
+        step_ms = []
+        for k in range(steps + bool(checkpoint)):
+            if k == steps:  # the checkpoint, then one more step
+                save(ens, name)
+                ens.write_restart(checkpoint)
+            a = time.perf_counter()
+            ens.step()
+            torch.cuda.synchronize(device)
+            step_ms.append(1e3 * (time.perf_counter() - a))
+        launches = momentum_cuda.launches
+        save(ens, f"{name}_next" if checkpoint else name)
+        recs.append({"name": name, "rank": rank, "members": ens.members, "init_s": init_s, "step_ms": step_ms,
+                     "launches": launches, "block": list(ens.states.conc.shape[1:])})
+        del ens
+        torch.cuda.empty_cache()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(recs))
+
+
+def mesh_ensemble_phase(tmp: Path, smi: str, ens, early):
+    """Phase 26: phase 19's configuration and files, 4 members, on the
+    member meshes (4,) (a member a rank) and (2, 1, 2) (two members on 1x2
+    blocks a group), MESH_ENSEMBLE_STEPS steps: every member equals phase
+    19's single-device ``BatchedEnsemble`` member after as many steps
+    (``early``) bitwise; the (4,) checkpoint read into phase 19's ensemble
+    (``ens``) equals it, and one more step stays equal. Returns the kernel
+    launches of the member-mesh runs summed over the ranks."""
+    import shutil
+
+    import torch
+
+    from nextsim_tpu_torch import state_to_numpy
+    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.parallel.distributed import run_world
+
+    t_phase = time.perf_counter()
+    world = tmp / "mesh_ensemble"
+    world.mkdir()
+    overrides = dict(a.split("=", 1) for a in DATASET_ARGS)
+    overrides.update({"output.exporter_path": str(world / "run"), "moorings.use_moorings": False,
+                      "tpu.halo_depth": 6})
+    cases = [("m4", (4,), MESH_ENSEMBLE_STEPS, "mesh4"), ("m212", (2, 1, 2), MESH_ENSEMBLE_STEPS, None)]
+    run_world(mesh_ensemble_rank, MESH_RANKS, args=(str(ROOT / "configs" / "arctic_10km.cfg"), overrides, cases,
+                                                     str(world)), device="cuda", timeout=600)
+    t_world = time.perf_counter() - t_phase
+    recs = [r for k in range(MESH_RANKS) for r in json.loads((world / f"rank{k}.json").read_text())]
+
+    def same(npz, states, what):
+        with np.load(npz) as got:
+            bad = [f"{m}_{f}" for m, st in enumerate(states) for f, v in st.items()
+                   if not np.array_equal(got[f"{m}_{f}"], v)]
+        if bad:
+            raise AssertionError(f"mesh ensemble {what}: {bad} differ")
+
+    for name in ("m4", "m212"):
+        same(world / f"{name}.npz", early, f"{name} against phase 19's members")
+    # the (4,) checkpoint into phase 19's single-device ensemble
+    shutil.copy(world / "run" / "restart" / "restart_mesh4.npz", Path(ens._restart_file("mesh4")))
+    ens.read_restart("mesh4")
+    if ens.pcpt != MESH_ENSEMBLE_STEPS:
+        raise AssertionError(f"mesh ensemble checkpoint: pcpt {ens.pcpt}")
+    same(world / "m4.npz", [state_to_numpy(ens.member_state(m)) for m in range(ens.n)], "checkpoint read")
+    momentum_cuda.launches = 0
+    ens.step()
+    n_one = momentum_cuda.launches
+    same(world / "m4_next.npz", [state_to_numpy(ens.member_state(m)) for m in range(ens.n)], "one more step")
+    torch.cuda.empty_cache()
+    per_loop = momentum_cuda.launches_for(ens.sim.dyn.substeps, *ens.sim.grid.shape)
+    if n_one != ens.n * per_loop:
+        raise AssertionError(f"mesh ensemble: the single device's step launched {n_one}, not {ens.n * per_loop}")
+
+    def of(name):
+        return [r for r in recs if r["name"] == name]
+
+    for name, what in (("m4", "(4,): a member a rank"), ("m212", "(2, 1, 2): 2 members on 1x2 blocks a group")):
+        rs = of(name)
+        if any(r["launches"] <= 0 for r in rs):
+            raise AssertionError(f"mesh ensemble {name}: a rank ran without the kernel")
+        phase("mesh ensemble", f"{what}: members by rank {[r['members'] for r in rs]}, blocks "
+              f"{[tuple(r['block']) for r in rs]}; init by rank {[round(r['init_s'], 1) for r in rs]} s; ms/step by rank "
+              f"{[[round(m, 1) for m in r['step_ms']] for r in rs]}; kernel launches by rank {[r['launches'] for r in rs]}; "
+              f"{smi}")
+    phase("mesh ensemble", f"phase 19's configuration (608^2, ERA5 + TOPAZ4 + ETOPO, thermo on), 4 members x "
+          f"{MESH_ENSEMBLE_STEPS} steps on the member meshes (4,) and (2, 1, 2): every member equals phase 19's "
+          f"single-device BatchedEnsemble bitwise; the (4,) checkpoint read by phase 19's ensemble equals it, and one "
+          f"more step stays equal bitwise; the world took {t_world:.1f} s; times of ranks that share one card are no "
+          f"scaling numbers; {smi}")
+    return sum(r["launches"] for r in recs)
+
+
+def mesh_gradient_rank(out_dir):
+    """One rank of phase 27: phase 23's thermo-off 464^2 configuration on a
+    2x2 mesh, H = 6, one forward step, then d(mean KE after one step)/
+    d(wind_u) through ``raw_step_fn``, float32 and float64: each rank's loss
+    counts its own nodes (a seam node once), ``Seam.fold`` adds the blocks'
+    gradients; one warm call, then one timed with its kernel launches and
+    peak memory. Rank 0 saves the gradients; records to ``rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from nextsim_tpu_torch import Config, Simulator
+    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.parallel.distributed import local_device
+
+    rank = dist.get_rank()
+    device = local_device("cuda")
+    recs, grads = [], {}
+    for dtype_name in ("float32", "float64"):
+        sim = Simulator(Config(overrides=dict(GRAD, **{"tpu.dtype": dtype_name, "tpu.mesh_shape": "2x2",
+                                                       "tpu.halo_depth": 6})), device=device)
+        sim.step()
+        f = sim.forcing_provider(sim.current_time, sim.time_init)
+        ti = sim.time_info()
+        n = (sim.grid.ny + 1) * (sim.grid.nx + 1)
+
+        def grad():
+            wind = sim.to_blocks(f.wind_u).detach().requires_grad_(True)
+            s, _, _ = sim.raw_step_fn(sim.state, sim.to_blocks(f).replace(wind_u=wind), ti)
+            ke = (s.vt_u * s.vt_u + s.vt_v * s.vt_v)[sim.mesh.layout.count_index(True)]
+            (g,) = torch.autograd.grad(ke.sum() / n, wind)
+            return sim.mesh.fold(g)
+
+        grad()  # warm
+        torch.cuda.synchronize(device)
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+        momentum_cuda.launches = 0
+        rings0 = sim.mesh.exchanges
+        t0 = time.perf_counter()
+        g = grad()
+        torch.cuda.synchronize(device)
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = momentum_cuda.launches
+        peak = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+        rings = sim.mesh.exchanges - rings0
+        _, busy, kernels = profiled(grad, host_events=False)  # one more call: every kernel on the card
+        recs.append({"dtype": dtype_name, "rank": rank, "ms": ms, "launches": launches, "peak_gib": peak,
+                     "rings": rings, "kernels": kernels, "busy_ms": busy, "block": list(sim.state.conc.shape)})
+        grads[dtype_name] = g.cpu().numpy()
+        if not np.isfinite(grads[dtype_name]).all():
+            raise AssertionError(f"mesh gradient {dtype_name}: not finite")
+        del sim
+        torch.cuda.empty_cache()
+    if rank == 0:
+        np.savez(Path(out_dir) / "mesh_grad.npz", **grads)
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(recs))
+
+
+def mesh_gradient_phase(tmp: Path, smi: str, single: dict):
+    """Phase 27: the gradient of phase 23 (thermo off, 464^2, one forward
+    step first) on a 2x2 mesh, H = 6, float32 and float64, against phase
+    23's single-device gradients ``single`` (relative L2 within
+    MESH_GRAD_REL_L2). Returns the kernel launches of the timed gradients
+    summed over the ranks."""
+    from nextsim_tpu_torch.parallel.distributed import run_world
+
+    t_phase = time.perf_counter()
+    world = tmp / "mesh_grad"
+    world.mkdir()
+    run_world(mesh_gradient_rank, MESH_RANKS, args=(str(world),), device="cuda", timeout=600)
+    recs = [r for k in range(MESH_RANKS) for r in json.loads((world / f"rank{k}.json").read_text())]
+    report = []
+    with np.load(world / "mesh_grad.npz") as got:
+        for dtype_name in ("float32", "float64"):
+            g, ref = got[dtype_name].astype(np.float64), single[dtype_name].astype(np.float64)
+            rel = float(np.linalg.norm(g - ref) / np.linalg.norm(ref))
+            if not rel <= MESH_GRAD_REL_L2[dtype_name]:
+                raise AssertionError(f"mesh gradient {dtype_name}: {rel:.3e} (relative L2) from phase 23's")
+            rs = [r for r in recs if r["dtype"] == dtype_name]
+            if any(r["launches"] <= 0 for r in rs):
+                raise AssertionError(f"mesh gradient {dtype_name}: a rank ran without the kernel")
+            report.append(f"{dtype_name}: relative L2 {rel:.3e} from phase 23's single-device gradient (max "
+                          f"{float(np.abs(g - ref).max() / np.abs(ref).max()):.3e}); ms by rank "
+                          f"{[round(r['ms'], 1) for r in rs]}, substep-kernel launches by rank "
+                          f"{[r['launches'] for r in rs]}, kernels by rank {[r['kernels'] for r in rs]} (device busy "
+                          f"{[round(r['busy_ms'], 1) for r in rs]} ms; one more call under torch.profiler), "
+                          f"ring exchanges by rank {[r['rings'] for r in rs]}, peak memory by rank "
+                          f"{[round(r['peak_gib'], 3) for r in rs]} GiB")
+    phase("mesh grad", f"d(mean KE)/d(wind_u) through raw_step_fn at 464^2 on a 2x2 mesh, H = 6, BBM, blocks "
+          f"{sorted({tuple(r['block']) for r in recs})}, each rank's loss on its own nodes, Seam.fold: "
+          + "; ".join(report) + f"; the phase took {time.perf_counter() - t_phase:.1f} s; times of ranks that "
+          f"share one card are no scaling numbers; {smi}")
+    return sum(r["launches"] for r in recs)
 
 
 @contextlib.contextmanager
@@ -2430,17 +2834,23 @@ def main() -> int:
 
         # 19-22. ensembles on the phase-11 files, the driver, validation
         with data_dir(tmp / "data"):
-            ens, path_launches["ensemble"] = ensemble_run(tmp, smi, dataset_ms)
+            ens, path_launches["ensemble"], early = ensemble_run(tmp, smi, dataset_ms)
         ensemble_members_vs_simulators(smi)
         ensemble_driver(tmp, smi)
         path_launches["validation"] = validation_run(tmp, smi, ens)
+
+        # 23. gradients through the step
+        path_launches["gradient"], single_grads = gradient_phase(smi)
+
+        # 24. a 2x2 mesh of ranks
+        path_launches["mesh"], mesh_err = mesh_phase(smi)
+
+        # 25-27. the wave path on a 2x2 mesh, the member meshes, a mesh gradient
+        with data_dir(tmp / "data"):
+            path_launches["mesh_waves"], mesh_wave_err = mesh_waves_phase(tmp, smi)
+            path_launches["mesh_ensemble"] = mesh_ensemble_phase(tmp, smi, ens, early)
         del ens
-
-    # 23. gradients through the step
-    path_launches["gradient"] = gradient_phase(smi)
-
-    # 24. a 2x2 mesh of ranks
-    path_launches["mesh"], mesh_err = mesh_phase(smi)
+        path_launches["mesh_gradient"] = mesh_gradient_phase(tmp, smi, single_grads)
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     if min(path_launches.values()) <= 0:
         raise AssertionError(f"a path ran without the kernel: {path_launches}")
@@ -2452,7 +2862,7 @@ def main() -> int:
         "replaces": "nextsim_tpu/ops/momentum_pallas.py:286",
         "launches": sum(path_launches.values()),
         "launches_by_path": path_launches,
-        "max_abs_err": max(main_err, dataset_err, wave_err, mesh_err),
+        "max_abs_err": max(main_err, dataset_err, wave_err, mesh_err, mesh_wave_err),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

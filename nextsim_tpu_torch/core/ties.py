@@ -1,7 +1,7 @@
 """``jnp.maximum``, ``jnp.minimum`` and ``jnp.clip`` against a bound, with
 JAX's gradient at a tie; ``scalar`` for the math of a parameter that may be
-a tensor; ``pow``, a power whose bits do not depend on where an element sits
-in its tensor.
+a tensor; ``pow`` and ``atan2``, whose bits do not depend on where an
+element sits in its tensor.
 
 ``torch.clamp(x, min=c)`` and ``jnp.maximum(x, c)`` agree in value, but not
 in reverse mode where ``x == c`` exactly: clamp passes the whole gradient to
@@ -69,6 +69,23 @@ _ONE_THREAD = 32768
 _LANES = 64
 
 
+def _elementwise(fn, x: torch.Tensor, y) -> torch.Tensor:
+    """``fn(x, y)`` for a tensor ``x`` and a tensor or number ``y``, with the
+    bits of every element taken by the CPU's vectorized loop (``pow``)."""
+    if x.device.type != "cpu":
+        return fn(x, y)
+    shape = torch.broadcast_shapes(x.shape, y.shape) if isinstance(y, torch.Tensor) else x.shape
+    n = math.prod(shape)
+    pad = -n % _LANES
+
+    def flat(t):
+        return torch.cat([t.expand(shape).reshape(-1), t.new_ones(pad)])
+
+    xs = flat(x).split(_ONE_THREAD)
+    ys = flat(y).split(_ONE_THREAD) if isinstance(y, torch.Tensor) else [y] * len(xs)
+    return torch.cat([fn(a, b) for a, b in zip(xs, ys)])[:n].view(shape)
+
+
 def pow(x: torch.Tensor, e) -> torch.Tensor:
     """``x ** e`` for a float or tensor exponent ``e``, with bits that depend
     on the element alone.
@@ -81,15 +98,11 @@ def pow(x: torch.Tensor, e) -> torch.Tensor:
     and taken in calls small enough for one thread: every element goes
     through the vectorized loop. On a CUDA device every element takes the
     same path, and ``torch.pow`` is used as it is."""
-    if x.device.type != "cpu":
-        return torch.pow(x, e)
-    shape = torch.broadcast_shapes(x.shape, e.shape) if isinstance(e, torch.Tensor) else x.shape
-    n = math.prod(shape)
-    pad = -n % _LANES
+    return _elementwise(torch.pow, x, e)
 
-    def flat(t):
-        return torch.cat([t.expand(shape).reshape(-1), t.new_ones(pad)])
 
-    xs = flat(x).split(_ONE_THREAD)
-    es = flat(e).split(_ONE_THREAD) if isinstance(e, torch.Tensor) else [e] * len(xs)
-    return torch.cat([torch.pow(a, b) for a, b in zip(xs, es)])[:n].view(shape)
+def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``torch.atan2(y, x)`` with bits that depend on the element alone: the
+    CPU's vectorized ``atan2`` rounds otherwise than its scalar loop, as
+    ``pow``'s does, and is taken the same way."""
+    return _elementwise(torch.atan2, y, x)

@@ -2,16 +2,16 @@
 
 The reference runs ensemble members as separate MPI jobs (reference:
 scripts/ensemble/run_ensemble.sh; modules/enkf perturbations applied per
-process under #ifdef ENSEMBLE, externaldata.cpp:244-278). Here all members
+process under #ifdef ENSEMBLE, externaldata.cpp:244-278). Here the members
 live in one process and on one device: every ``State`` field is stacked on a
 leading member axis, as in the JAX package, so the ensemble mean, spread and
 statistics are reductions over axis 0.
 
 The step itself is not batched. The port's operators are written for 2-D
 planes and the substep kernel takes one state, so each member steps in turn
-through the template Simulator's ``_step_fn`` on the views ``x[k]`` of the
-stack, and the result is written back into it. N members cost N model steps
-(and one forcing call); ``python -m nextsim_tpu_torch.ensemble.run_ensemble``
+through the template Simulator's ``raw_step_fn`` on the views ``x[k]`` of
+the stack, and the result is written back into it. N members cost N model
+steps (and one forcing call); ``python -m nextsim_tpu_torch.ensemble.run_ensemble``
 runs members as separate Simulators instead.
 
 Member 0 is the unperturbed control; members 1..N-1 carry independent AR(1)
@@ -19,19 +19,36 @@ spectral forcing perturbations (ensemble/perturbation.py). Member m's stream
 is the one a ``Simulator`` with ``statevector.ensemble_member=m`` and the
 same seed draws, so batched member m equals that Simulator's run.
 
+A member mesh (``mesh``, the JAX ``('member',)`` and ``('member', 'y',
+'x')`` meshes) is a shape: ``(P,)`` or ``(P, dpy, dpx)``, one
+torch.distributed rank a device, P * dpy * dpx ranks (``tpu.mesh_shape``
+alone is ``(1, dpy, dpx)``). The ranks form P groups of dpy x dpx
+(``multihost.member_groups``); group g holds members g*N/P .. (g+1)*N/P - 1,
+steps them through its own template Simulator on its blocks, with the
+group's ``seam.Seam`` as its exchanger, and draws their noise from their
+own generators, seeded as everywhere, so member m's draws do not depend on
+the layout. What reads the whole ensemble (``member_state``, ``spread``,
+``mean_state``, the statistics records, the checkpoint) gathers the members'
+global planes from the groups (collective: every rank calls it).
+
 Checkpoints are one ``restart_<name>.npz`` (the JAX package writes an orbax
 directory; the port has no orbax): the stacked state, the AR(1) carry and
 every member generator's state, so a resumed ensemble continues the same
-noise stream.
+noise stream. Under a member mesh, rank 0 writes the same single npz of
+global planes, and every rank reads its members from it: a checkpoint
+crosses member layouts both ways. The JAX package refuses a checkpoint of
+padded planes written under another 3-D mesh; the port's npz holds logical
+global planes only, so that refusal has nothing to guard here.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,52 +62,101 @@ def _fields(state):
     return [f.name for f in dataclasses.fields(state) if getattr(state, f.name) is not None]
 
 
+def member_layout(cfg, n_members: int, mesh) -> Tuple[int, int, int]:
+    """(P, dpy, dpx) of a ``BatchedEnsemble``'s ``mesh`` argument and its
+    config's ``tpu.mesh_shape`` (module docstring); raises ValueError on a
+    shape of another form, on a config that disagrees, on a world whose
+    size is not P * dpy * dpx, and when P does not divide the members."""
+    from nextsim_tpu_torch.parallel import multihost
+    from nextsim_tpu_torch.parallel.seam import mesh_shape
+
+    cfg_blocks = mesh_shape(cfg)
+    if mesh is None:
+        layout = (1,) + cfg_blocks
+    else:
+        layout = tuple(int(v) for v in mesh)
+        if len(layout) == 1:
+            layout = layout + (1, 1)
+        if len(layout) != 3 or min(layout) < 1:
+            raise ValueError(f"BatchedEnsemble mesh must be (P,) or (P, dpy, dpx), not {mesh!r}: "
+                             "members, or members x domain decomposition")
+        if cfg_blocks != (1, 1) and cfg_blocks != layout[1:]:
+            raise ValueError(f"BatchedEnsemble mesh {tuple(mesh)} disagrees with "
+                             f"tpu.mesh_shape={cfg_blocks[0]}x{cfg_blocks[1]}")
+    size = multihost.process_count()
+    ranks = math.prod(layout)
+    if ranks != size:
+        raise ValueError(
+            f"a BatchedEnsemble on the member mesh {layout} runs one rank a device, {ranks} ranks, "
+            f"and this world has {size}: start it with torchrun --nproc-per-node {ranks} (or set "
+            "RANK, WORLD_SIZE, MASTER_ADDR and MASTER_PORT in each process)")
+    if n_members % layout[0]:
+        raise ValueError(f"the mesh's member axis ({layout[0]} device groups) must divide "
+                         f"n_members={n_members}")
+    return layout
+
+
 class BatchedEnsemble:
-    """N members on a leading axis, stepped one after the other."""
+    """N members on a leading axis, stepped one after the other; on a member
+    mesh, each group of ranks steps its share of them (module docstring)."""
 
     def __init__(self, cfg, n_members: int, seed: int = 11,
-                 params: Optional[PerturbationParams] = None, device="cuda"):
+                 params: Optional[PerturbationParams] = None, device="cuda", mesh=None):
         from nextsim_tpu_torch.model.simulator import Simulator
-
-        from nextsim_tpu_torch.parallel.seam import mesh_shape
+        from nextsim_tpu_torch.parallel import multihost
 
         if n_members < 1:
             raise ValueError("n_members must be >= 1")
-        if mesh_shape(cfg) != (1, 1):
-            raise NotImplementedError(
-                "the PyTorch port does not have the batched ensemble on a device mesh "
-                "(ROADMAP A.14b) yet"
-            )
         if cfg["statevector.ensemble_member"] > 0:
             raise ValueError(
                 "BatchedEnsemble manages perturbations itself: leave "
                 "statevector.ensemble_member at 0"
             )
         self.n = n_members
-        self.sim = Simulator(cfg, device=device)  # template: control provider, step fn, grid
+        self.member_mesh = member_layout(cfg, n_members, mesh)
+        P, dpy, dpx = self.member_mesh
+        group, self.group_index = None, 0
+        if P > 1:
+            groups, self.group_index = multihost.member_groups(P)
+            group = groups[self.group_index]
+        self._blocks_a_group = dpy * dpx
+        per = n_members // P
+        self.members = list(range(self.group_index * per, (self.group_index + 1) * per))
+        if (dpy, dpx) != (1, 1):
+            cfg = copy.deepcopy(cfg)
+            cfg.set("tpu.mesh_shape", f"{dpy}x{dpx}")
+        # template: control provider, step fn, grid; this group's blocks
+        self.sim = Simulator(cfg, device=device, group=group)
         self.states = self.sim.state.replace(**{
-            name: torch.stack([getattr(self.sim.state, name)] * n_members) for name in _fields(self.sim.state)
+            name: torch.stack([getattr(self.sim.state, name)] * per) for name in _fields(self.sim.state)
         })
         # one perturbation engine (its _draw_stack and _advance), one
-        # generator a perturbed member
+        # generator a perturbed member of this group
         self._pert = EnsembleForcing(
             self.sim.forcing_provider, self.sim.grid, cfg, params=params, seed=seed,
             dtype=self.sim.dtype, device=self.sim.device,
         )
-        self.generators = [member_generator(seed, m, self.sim.device) for m in range(1, n_members)]
-        self._ran = None  # AR(1) carry, (n-1, 4, ny, nx)
+        self.generators = [member_generator(seed, m, self.sim.device) for m in self.members if m > 0]
+        self._ran = None  # AR(1) carry of this group's perturbed members, (n_p, 4, ny, nx)
         self.pcpt = 0
+
+    @property
+    def sharded(self) -> bool:
+        """True on a member mesh or a block layout: more than one rank."""
+        return math.prod(self.member_mesh) > 1
 
     # -- forcing ----------------------------------------------------------
     def _member_forcings(self, t_days: float) -> list:
-        """The shared base forcing (one provider call), then each perturbed
-        member's, its AR(1) carry advanced with a fresh draw of its stream."""
+        """The shared base forcing (one provider call), then the forcing of
+        each of this group's members: the base for the control, else the
+        base perturbed by the member's AR(1) carry advanced with a fresh
+        draw of its stream. Global planes."""
         base = self.sim.forcing_provider(t_days, self.sim.time_init)
-        if self.n == 1:
-            return [base]
+        if not self.generators:
+            return [base] * len(self.members)
         if self._ran is None:
             self._ran = torch.stack([self._pert._draw_stack(g) for g in self.generators])
-        out, ran = [base], []
+        out, ran = [base] if self.members[0] == 0 else [], []
         for k, g in enumerate(self.generators):
             r, f = self._pert._advance(self._ran[k], self._pert._draw_stack(g), base)
             ran.append(r)
@@ -105,9 +171,12 @@ class BatchedEnsemble:
         forcings = self._member_forcings(t_next)
         tinfo = sim.time_info_at(sim.time_init + self.pcpt * sim.dt * dates.DAYS_IN_SEC)
         names = _fields(self.states)
+        blocks = {}
         for k, forcing in enumerate(forcings):
+            if id(forcing) not in blocks:  # the control's base is cut once
+                blocks[id(forcing)] = sim.to_blocks(forcing)
             member = self.states.replace(**{name: getattr(self.states, name)[k] for name in names})
-            out, _diag, _viol = sim._step_fn(member, forcing, tinfo)
+            out, _diag, _viol = sim.raw_step_fn(member, blocks[id(forcing)], tinfo)
             for name in names:
                 getattr(self.states, name)[k].copy_(getattr(out, name))
         self.pcpt += 1
@@ -117,6 +186,54 @@ class BatchedEnsemble:
     def run(self, n_steps: int) -> None:
         for _ in range(n_steps):
             self.step()
+
+    # -- the whole ensemble on every rank ----------------------------------
+    def _gather_members(self, ks) -> Dict[str, np.ndarray]:
+        """Host copies of the global planes of members ``ks`` of every field,
+        stacked in that order, on every rank (collective on a member mesh or
+        a block layout)."""
+        from nextsim_tpu_torch.parallel import multihost
+
+        names = _fields(self.states)
+        per = len(self.members)
+        if not self.sharded:
+            return {name: getattr(self.states, name)[list(ks)].detach().cpu().numpy() for name in names}
+        parts = {}
+        for g in range(self.member_mesh[0]):
+            mine = [k for k in ks if k // per == g]
+            if not mine:
+                continue
+            if g == self.group_index:
+                local = {name: getattr(self.states, name)[[k - g * per for k in mine]] for name in names}
+                host = self.sim.gather(local)
+            else:
+                host = {name: np.zeros((len(mine),) + shape, dtype)
+                        for name, (shape, dtype) in self._global_planes().items()}
+            if self.member_mesh[0] > 1:
+                host = multihost.broadcast_host(host, src=g * self._blocks_a_group)
+            for i, k in enumerate(mine):
+                parts[k] = {name: host[name][i] for name in names}
+        return {name: np.stack([parts[k][name] for k in ks]) for name in names}
+
+    def _global_planes(self):
+        """{field: (global shape of a member's plane, numpy dtype)}."""
+        lay = None if self.sim.mesh is None else self.sim.mesh.layout
+        out = {}
+        for name in _fields(self.states):
+            x = getattr(self.states, name)[0]
+            kind = None if lay is None else lay.block_kind(x)
+            shape = tuple(x.shape) if kind is None else tuple(x.shape[:-2]) + lay.global_shape(kind == "node")
+            out[name] = (shape, _numpy_dtype(x.dtype))
+        return out
+
+    def _stack(self) -> State:
+        """Every member's state, global planes stacked on the device: the
+        stack itself on one rank, gathered from the groups otherwise."""
+        if not self.sharded:
+            return self.states
+        host = self._gather_members(range(self.n))
+        return self.states.replace(**{name: torch.as_tensor(a, device=self.sim.device)
+                                      for name, a in host.items()})
 
     # -- outputs ----------------------------------------------------------
     @property
@@ -131,7 +248,7 @@ class BatchedEnsemble:
         scripts/ensemble/run_ensemble.sh)."""
         from nextsim_tpu_torch.output.moorings import MOORING_VARIABLES, VECTOR_VARIABLES
 
-        states = self.states
+        states = self._stack()
         out = {}
 
         def add(nc_name, a):
@@ -180,7 +297,8 @@ class BatchedEnsemble:
     def _maybe_output_stats(self) -> None:
         """Write an ensemble-statistics moorings record when the configured
         moorings window closes (snapshot statistics at the output instants,
-        through the Moorings grid, remap, rollover and append)."""
+        through the Moorings grid, remap, rollover and append; rank 0
+        writes)."""
         moor = self.sim.moorings
         t = self.current_time
         if t - moor._last_output_time < moor.output_dt_days - 1e-9:
@@ -196,25 +314,59 @@ class BatchedEnsemble:
     def _restart_file(self, name: str) -> str:
         return os.path.join(self.sim.cfg["output.exporter_path"], "restart", f"restart_{name}.npz")
 
+    def _noise_arrays(self) -> Dict[str, np.ndarray]:
+        """The AR(1) carry (once drawn) and the generators' states of members
+        1..N-1, in member order, on every rank (broadcast from the groups'
+        first ranks on a member mesh)."""
+        from nextsim_tpu_torch.parallel import multihost
+
+        ran = None if self._ran is None else self._ran.detach().cpu().numpy()
+        gens = [g.get_state().numpy() for g in self.generators]
+        if self.member_mesh[0] == 1:
+            out = {} if ran is None else {"ran": ran}
+            return dict(out, generators=np.stack(gens)) if gens else out
+        per = len(self.members)
+        ran_shape = (len(EnsembleForcing.FIELDS),) + tuple(self.sim.grid.shape)
+        gen_len = len(member_generator(0, 1, self.sim.device).get_state())
+        parts = []
+        for g in range(self.member_mesh[0]):
+            n_p = per - (1 if g == 0 else 0)  # the control draws no noise
+            if n_p == 0:
+                continue
+            host = {"ran": np.zeros((n_p,) + ran_shape, _numpy_dtype(self.sim.dtype)),
+                    "has_ran": np.zeros(1, np.uint8), "generators": np.zeros((n_p, gen_len), np.uint8)}
+            if g == self.group_index:
+                host["generators"] = np.stack(gens)
+                if ran is not None:
+                    host["ran"], host["has_ran"][0] = ran, 1
+            parts.append(multihost.broadcast_host(host, src=g * self._blocks_a_group))
+        if not parts:
+            return {}
+        out = {"generators": np.concatenate([q["generators"] for q in parts])}
+        if all(q["has_ran"][0] for q in parts):
+            out["ran"] = np.concatenate([q["ran"] for q in parts])
+        return out
+
     def write_restart(self, name: str = "batched") -> str:
         """One checkpoint of the whole ensemble: the stacked state, the
         AR(1) carry and every member generator's state, so a resumed
-        ensemble continues the same forcing-noise stream."""
-        from nextsim_tpu_torch.core.state import to_host
+        ensemble continues the same forcing-noise stream. On a member mesh
+        every rank gathers, rank 0 writes the npz of global planes."""
         from nextsim_tpu_torch.output.restart import save_npz_restart
+        from nextsim_tpu_torch.parallel import multihost
 
         fname = self._restart_file(name)
+        arrays = {f"state_{k}": v for k, v in self._gather_members(range(self.n)).items()}
+        arrays.update(self._noise_arrays())
+        if not multihost.is_writer():
+            return fname
         os.makedirs(os.path.dirname(fname), exist_ok=True)
-        arrays = {f"state_{k}": to_host(getattr(self.states, k)) for k in _fields(self.states)}
-        if self._ran is not None:
-            arrays["ran"] = to_host(self._ran)
-        if self.generators:
-            arrays["generators"] = np.stack([g.get_state().numpy() for g in self.generators])
         meta = {"pcpt": self.pcpt, "n_members": self.n, "time_init": self.sim.time_init}
         return save_npz_restart(fname, meta, arrays)
 
     def read_restart(self, name: str = "batched") -> None:
-        """Restore a checkpoint written by ``write_restart``."""
+        """Restore a checkpoint written by ``write_restart`` under any member
+        layout: each group keeps its members, cut to its blocks."""
         fname = self._restart_file(name)
         with np.load(fname, allow_pickle=False) as data:
             meta = json.loads(str(data["__meta__"]))
@@ -232,10 +384,12 @@ class BatchedEnsemble:
             kw = {}
             for f in dataclasses.fields(self.states):
                 key, cur = f"state_{f.name}", getattr(self.states, f.name)
-                kw[f.name] = on_dev(data[key], cur.dtype if cur is not None else self.sim.dtype) if key in data else None
-            self.states = State(**kw)
-            self._ran = on_dev(data["ran"]) if "ran" in data else None
-            for g, st in zip(self.generators, data["generators"] if self.generators else ()):
+                kw[f.name] = (on_dev(data[key][self.members], cur.dtype if cur is not None else self.sim.dtype)
+                              if key in data else None)
+            self.states = self.sim.to_blocks(State(**kw))
+            noisy = [m - 1 for m in self.members if m > 0]
+            self._ran = on_dev(data["ran"][noisy]) if "ran" in data and noisy else None
+            for g, st in zip(self.generators, data["generators"][noisy] if self.generators else ()):
                 g.set_state(torch.from_numpy(np.array(st)))
         self.pcpt = int(meta["pcpt"])
         if self.sim.moorings is not None:
@@ -253,41 +407,57 @@ class BatchedEnsemble:
         (restart.start_from_restart=true) — so the per-process driver
         (ensemble/run_ensemble.py) can resume a forecast cycle that was
         advanced batched (the per-member outputs of the reference's
-        scripts/ensemble/run_ensemble.sh)."""
-        from nextsim_tpu_torch.core.state import to_host
+        scripts/ensemble/run_ensemble.sh). On a member mesh every rank
+        gathers, rank 0 writes."""
         from nextsim_tpu_torch.output.restart import restart_meta, save_npz_restart
+        from nextsim_tpu_torch.parallel import multihost
 
         base = self.sim.cfg["output.exporter_path"]
         # the counters live on the ensemble, not the template Simulator
         meta = dict(restart_meta(self.sim), pcpt=self.pcpt, current_time=self.current_time)
+        stack = self._gather_members(range(self.n))
         written = []
         for k in range(self.n):
-            st = self.member_state(k)
-            arrays = {name: to_host(getattr(st, name)) for name in _fields(st)}
             path = os.path.join(base, f"mem_{k}", "restart")
-            os.makedirs(path, exist_ok=True)
-            written.append(save_npz_restart(os.path.join(path, f"restart_{name}.npz"), meta, arrays))
+            fname = os.path.join(path, f"restart_{name}.npz")
+            if multihost.is_writer():
+                os.makedirs(path, exist_ok=True)
+                fname = save_npz_restart(fname, meta, {n: a[k] for n, a in stack.items()})
+            written.append(fname)
         return written
 
     # -- analysis ---------------------------------------------------------
     def member_state(self, k: int) -> State:
-        """Member k's State (0 = control): views into the stack."""
-        return self.states.replace(**{name: getattr(self.states, name)[k] for name in _fields(self.states)})
+        """Member k's State (0 = control): views into the stack on one
+        rank; on a member mesh its global planes on the device, on every
+        rank (collective)."""
+        if not self.sharded:
+            return self.states.replace(**{name: getattr(self.states, name)[k] for name in _fields(self.states)})
+        host = self._gather_members([k])
+        return self.states.replace(**{name: torch.as_tensor(a[0], device=self.sim.device)
+                                      for name, a in host.items()})
 
     def spread(self, fields=("conc", "thick", "vt_u", "vt_v")) -> Dict[str, float]:
         """Domain-mean ensemble standard deviation per field (the usual
         spread diagnostic for perturbation sanity)."""
+        states = self._stack()
         out = {}
         for name in fields:
-            x = getattr(self.states, name)
+            x = getattr(states, name)
             if x is None:
                 continue
             out[name] = float(x.to(torch.float32).std(dim=0, correction=0).mean())
         return out
 
     def mean_state(self) -> State:
-        """Ensemble-mean State (the EnKF forecast mean)."""
-        return self.states.replace(**{
-            name: getattr(self.states, name).mean(dim=0).to(getattr(self.states, name).dtype)
-            for name in _fields(self.states)
+        """Ensemble-mean State (the EnKF forecast mean), global planes."""
+        states = self._stack()
+        return states.replace(**{
+            name: getattr(states, name).mean(dim=0).to(getattr(states, name).dtype)
+            for name in _fields(states)
         })
+
+
+def _numpy_dtype(dtype: torch.dtype):
+    """The numpy dtype of a torch dtype."""
+    return torch.empty((), dtype=dtype).numpy().dtype

@@ -24,14 +24,18 @@ output cadence, as the JAX package does.
 A device mesh (``tpu.mesh_shape = DPYxDPX``) runs one torch.distributed
 rank per block (parallel/seam.py): each rank holds its ext block of the
 state, the grid arrays and every step's forcing, the step exchanges rings
-through ``self.mesh`` (a ``seam.Seam``), and the outputs gather the owned
-blocks (``gather``) and are written by rank 0. ``tpu.partition_mode``
-gspmd and shard_map run this one schedule.
+through ``self.mesh`` (a ``seam.Seam``; ``step`` and ``raw_step_fn``
+alike), and the outputs gather the owned blocks (``gather``) and are written
+by rank 0. ``tpu.partition_mode`` gspmd and shard_map run this one schedule.
+The waves-in-ice module runs on the same blocks in a layout of its own
+(``Wim(mesh=...)``: its ring, its periodic edges); on its own grid
+(``nextwim.coupling-option=naive``) every rank runs that whole grid from
+gathered fields and keeps its block of the results. Gradients flow through
+the exchanges (``seam.RingExchange``).
 
-The subsystems the JAX Simulator wires up that the port does not have yet
-(the WIM on a mesh, a bfloat16 state) raise ``NotImplementedError``
-naming the ROADMAP item that ports them; none is skipped silently. The
-options that tune JAX's compilation and TPU kernels
+A bfloat16 state, which the JAX Simulator takes and the port does not have
+yet, raises ``NotImplementedError`` naming the ROADMAP item that ports it;
+nothing is skipped silently. The options that tune JAX's compilation and TPU kernels
 (``tpu.donate_state``, ``tpu.compilation_cache_dir``, ``tpu.substep_kernel``,
 ``tpu.substep_unroll``, ``tpu.pallas_*``) have no counterpart here.
 """
@@ -69,8 +73,6 @@ def _unported(cfg) -> Optional[str]:
     """The first configured subsystem the port does not have yet, as
     'option (ROADMAP item)', or None."""
     rules = [
-        (seam.mesh_shape(cfg) != (1, 1) and cfg["nextwim.use_wim"],
-         "the waves-in-ice module on a device mesh (ROADMAP A.14b)"),
         (cfg["tpu.dtype"] == "bfloat16", "tpu.dtype=bfloat16 (ROADMAP A.16, bfloat16 state)"),
     ]
     for on, what in rules:
@@ -80,7 +82,10 @@ def _unported(cfg) -> Optional[str]:
 
 
 class Simulator:
-    def __init__(self, cfg: Config, grid: Optional[Grid] = None, device="cuda"):
+    def __init__(self, cfg: Config, grid: Optional[Grid] = None, device="cuda", *, group=None):
+        """``group``: the process group whose ranks hold the blocks of
+        ``tpu.mesh_shape`` (a member group of a batched ensemble on a member
+        mesh); the whole world when None."""
         what = _unported(cfg)
         if what is not None:
             raise NotImplementedError(f"the PyTorch port does not have {what} yet")
@@ -91,7 +96,7 @@ class Simulator:
         self.dtype = _DTYPES[cfg["tpu.dtype"]]
         self.grid = grid if grid is not None else Grid.from_config(cfg)
         # one rank per block of tpu.mesh_shape, None for one block
-        self.mesh = seam.make_seam(cfg, self.grid)
+        self.mesh = seam.make_seam(cfg, self.grid, group)
         self._forcing_blocks = (None, None)
 
         # --- time bookkeeping (host) -------------------------------------
@@ -203,18 +208,22 @@ class Simulator:
 
                 wim_grid = make_wim_grid(cfg, self.grid)
                 self._wim_regrid = Regridder(self.grid, wim_grid, self.dtype, device=self.device)
-            self.wim = Wim(WimParams.from_config(cfg), wim_grid, self.dtype, device=self.device)
+            # co-located on a device mesh: the WIM's own layout of this
+            # rank's block; on its own grid: that whole grid on every rank
+            self.wim = Wim(WimParams.from_config(cfg), wim_grid, self.dtype, device=self.device,
+                           mesh=self.mesh if self._wim_regrid is None else None)
             self.wim_couplingfreq = max(1, cfg["nextwim.couplingfreq"])
             self._wim_stress = None
             self._wim_wlbk = None
             self._wim_nfloes = None
+            self._wim_dmax = None
             self._wim_last_pcpt = None
             # cells around each node, for the cell -> node mean of the stress
-            self._wim_node_count = torch.clamp(
+            self._wim_node_count = self.to_blocks(torch.clamp(
                 stencil.cells_to_node_sum(
                     torch.ones(self.grid.shape, dtype=self.dtype, device=self.device)),
                 min=1.0,
-            )
+            ))
 
         opd = cfg["output.output_per_day"]
         if opd > 0:
@@ -319,11 +328,15 @@ class Simulator:
             owned = exchanger.owned
         return state, diag, checks.violations(state, use_young_ice=dyn.use_young_ice, owned=owned)
 
-    #: the JAX package's name for the step function: ``raw_step_fn(state,
-    #: forcing, tinfo)`` -> (state', diag, violation flags), differentiable
-    #: end to end (thermodynamics, the substep loop, transport); on the card
-    #: the substep loop's gradient goes through ``momentum_cuda.SubstepLoop``
-    raw_step_fn = _step_fn
+    def raw_step_fn(self, state, forcing, tinfo, nest=None):
+        """The JAX package's name for the step function: (state', diag,
+        violation flags), the step ``step()`` takes, on a device mesh with
+        its exchanges (state and forcing are then this rank's ext blocks).
+        Differentiable end to end (thermodynamics, the substep loop,
+        transport, the exchanges); on the card the substep loop's gradient
+        goes through ``momentum_cuda.SubstepLoop``, and on a mesh the
+        rings' through ``seam.RingExchange``."""
+        return self._step_fn(state, forcing, tinfo, nest, self.mesh)
 
     def _fsd_block(self, state, forcing, diag):
         """The floe-size distribution's part of a step: rescale to the new
@@ -388,18 +401,15 @@ class Simulator:
         tinfo = self.time_info()
         self.timer.tock("forcing")
         self.timer.tick("device_step")
-        self.state, self.diag, viol = self._step_fn(self.state, forcing, tinfo, nest, self.mesh)
+        self.state, self.diag, viol = self.raw_step_fn(self.state, forcing, tinfo, nest)
         self.last_forcing = forcing  # for output.save_forcing_fields
         if self.wim is not None:
             # WIM diagnostics for moorings (held constant between couplings)
             if self._wim_stress is not None:
                 self.diag.setdefault("tauwix", self._wim_stress[0])
                 self.diag.setdefault("tauwiy", self._wim_stress[1])
-            if self.fsd_params is None and self.wim.ice is not None:
-                dfloe = self.wim.ice["dfloe"]
-                if self._wim_regrid is not None:
-                    dfloe = self._wim_regrid.to_model(dfloe)
-                self.diag.setdefault("dmax", dfloe)
+            if self.fsd_params is None and self._wim_dmax is not None:
+                self.diag.setdefault("dmax", self._wim_dmax)
         self.pcpt += 1
         if self.coupler is not None:
             # (reference: OASIS put block, fe.cpp:8226-8265)
@@ -449,21 +459,18 @@ class Simulator:
         rg = self._wim_regrid
         conc = self.state.conc + self.state.conc_young
         vol = self.state.thick + self.state.h_young  # effective thickness = volume
-        if rg is not None:
-            # WIM on its own grid: ice fields over, stress/breakage back
-            # (reference gridinfo.cpp mesh<->grid interpolation)
-            conc, vol = rg.to_wim(conc), rg.to_wim(vol)
+        # incident waves: from the wave forcing dataset when present
+        # (wimsetup.wave-type=ww3a/eraiw_1deg), else the configured constant
+        # sea state over open water (wave-type=set_in_wim)
+        waves = []
+        if forcing is not None and getattr(forcing, "swh", None) is not None:
+            waves = [forcing.swh, forcing.mwp, forcing.mwd]
+        conc, vol, *waves = self._wim_inputs([conc, vol, *waves])
         if self._wim_nfloes is None:
             # unbroken pack on first call (dfloepackinit, iceinfo.hpp:61)
             self._wim_nfloes = torch.where(conc >= p.cice_min, conc / p.dfloe_pack_init**2, 0.0)
         self.wim.set_ice_fields(conc, vol, self._wim_nfloes)
-        # incident waves: from the wave forcing dataset when present
-        # (wimsetup.wave-type=ww3a/eraiw_1deg), else the configured constant
-        # sea state over open water (wave-type=set_in_wim)
-        if forcing is not None and getattr(forcing, "swh", None) is not None:
-            waves = (forcing.swh, forcing.mwp, forcing.mwd)
-            if rg is not None:
-                waves = tuple(rg.to_wim(w) for w in waves)
+        if waves:
             self.wim.set_wave_fields(*waves)
         else:
             ones = torch.ones_like(conc)
@@ -471,15 +478,24 @@ class Simulator:
         diag = self.wim.run(self.wim_couplingfreq * self.dt)
         self._wim_nfloes = self.wim.ice["nfloes"]
         broken = self.wim.ice["broken"]
-        dfloe = self.wim.ice["dfloe"]
+        dfloe = dmax = self.wim.ice["dfloe"]
         tau_x, tau_y = diag["tau_x"], diag["tau_y"]
         if rg is not None:
+            # WIM on its own grid: ice fields over, stress/breakage back
+            # (reference gridinfo.cpp mesh<->grid interpolation)
             tau_x, tau_y = rg.to_model(tau_x), rg.to_model(tau_y)
             broken = rg.to_model(broken)
+            dmax = rg.to_model(dfloe)
             # blend the broken-zone floe size only where breakage reached the
             # model grid, so pack-size bleed from bilinear edges can't dilute
             # the breaking wavelength below
-            dfloe = torch.where(broken > 0.0, rg.to_model(dfloe), p.dfloe_pack_init)
+            dfloe = torch.where(broken > 0.0, dmax, p.dfloe_pack_init)
+            # on a device mesh every rank ran the whole WIM grid: its block
+            tau_x, tau_y, broken, dfloe, dmax = self.to_blocks((tau_x, tau_y, broken, dfloe, dmax))
+        elif self.wim.mesh is not None:
+            tau_x, tau_y, broken, dfloe = self.wim.mesh.move([tau_x, tau_y, broken, dfloe], self.mesh)
+            dmax = dfloe
+        self._wim_dmax = dmax  # the moorings' dmax without an FSD
 
         if cfg["nextwim.applywavestress"]:
             # cell stress -> node average for the momentum solver
@@ -501,6 +517,18 @@ class Simulator:
             dmg = torch.maximum(self.state.damage, broken * cfg["nextwim.wim_damage_value"])
             self.state = self.state.replace(damage=dmg)
         self.wim_diag = diag
+
+    def _wim_inputs(self, planes):
+        """Model-grid cell planes (this rank's ext blocks on a device mesh)
+        as the WIM takes them: regridded to its own grid (gathered first on
+        a mesh, where every rank runs that whole grid), moved into the WIM's
+        layout of the blocks, or as they are."""
+        rg = self._wim_regrid
+        if rg is None:
+            return planes if self.wim.mesh is None else self.mesh.move(planes, self.wim.mesh)
+        if self.mesh is not None:
+            planes = [torch.as_tensor(a, device=self.device) for a in self.gather(tuple(planes))]
+        return [rg.to_wim(x) for x in planes]
 
     def _apply_wim_forcing(self, forcing):
         """Overlay the last WIM exchange (wave stress, FSD breaking

@@ -380,7 +380,7 @@ def explicit_solve(state, forcing, grid_arrays, dt: float, p: DynParams, exchang
     ))
     for sweep in range(p.nit_ow):
         if exchanger is not None and sweep % exchanger.halo_depth == 0:
-            exchanger.ring((vt_u, vt_v))
+            vt_u, vt_v = exchanger.ring((vt_u, vt_v))
         up = stencil.pad1(vt_u)
         vp = stencil.pad1(vt_v)
         u_bar = (up[:-2, 1:-1] + up[2:, 1:-1] + up[1:-1, :-2] + up[1:-1, 2:]) * nbr_rden
@@ -414,8 +414,10 @@ def explicit_solve(state, forcing, grid_arrays, dt: float, p: DynParams, exchang
     if exchanger is not None:
         # transport reads these with a reach of 3 cells; the displacement
         # waits for the exchange at the end of the step
-        exchanger.ring((state.vt_u, state.vt_v, state.sigma,
-                        state.damage if p.dynamics_type == "bbm" else None))
+        vt_u, vt_v, sigma, damage = exchanger.ring((state.vt_u, state.vt_v, state.sigma,
+                                                    state.damage if p.dynamics_type == "bbm" else None))
+        state = state.replace(vt_u=vt_u, vt_v=vt_v, sigma=sigma,
+                              damage=state.damage if damage is None else damage)
     diag = {"tau_ax": consts.tau_ax_diag, "tau_ay": consts.tau_ay_diag,
             "tau_wx": tau_wx, "tau_wy": tau_wy}
     return state, diag

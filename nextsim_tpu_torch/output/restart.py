@@ -31,7 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from nextsim_tpu_torch.core.state import State, to_host
+from nextsim_tpu_torch.core.state import State
 from nextsim_tpu_torch.parallel.multihost import is_writer
 from nextsim_tpu_torch.utils import dates
 
@@ -94,8 +94,7 @@ def write_restart(sim, name: Optional[str] = None) -> str:
     # in the reference restart) and the spectrum, so a resumed run continues
     # the wave field instead of re-spinning it up
     if getattr(sim, "wim", None) is not None and sim._wim_nfloes is not None:
-        arrays["__wim_nfloes"] = to_host(sim._wim_nfloes)
-        arrays["__wim_sdf"] = to_host(sim.wim.sdf)
+        arrays["__wim_nfloes"], arrays["__wim_sdf"] = sim.wim.gather((sim._wim_nfloes, sim.wim.sdf))
     fname = os.path.join(path, f"restart_{name}.npz")
     if not is_writer():
         return fname
@@ -146,9 +145,9 @@ def _apply_restart(sim, data, meta) -> None:
 
     if getattr(sim, "wim", None) is not None and "__wim_nfloes" in data:
         on_dev = lambda a: torch.as_tensor(np.array(a), dtype=sim.dtype, device=sim.device)  # noqa: E731
-        sim._wim_nfloes = on_dev(data["__wim_nfloes"])
-        if "__wim_sdf" in data and data["__wim_sdf"].shape == tuple(sim.wim.sdf.shape):
-            sim.wim.sdf = on_dev(data["__wim_sdf"])
+        sim._wim_nfloes = sim.wim.to_blocks(on_dev(data["__wim_nfloes"]))
+        if "__wim_sdf" in data and data["__wim_sdf"].shape == tuple(sim.wim.sdf.shape[:2]) + sim.wim.shape:
+            sim.wim.sdf = sim.wim.to_blocks(on_dev(data["__wim_sdf"]))
 
     rtype = cfg["restart.type"]
     if rtype == "arbitrary":

@@ -9,10 +9,12 @@ a process and the strips go through ``torch.distributed.batch_isend_irecv``.
 
 ``exchange_strips`` is the transport: the strips of several planes bound for
 one neighbour travel as one message, and what comes back is written into
-the planes in place. Under the gloo backend a plane on a card is staged
-through pinned host buffers (gloo's point-to-point calls take host
-tensors); under NCCL the strips go from card to card. ``ExchangeStats``
-counts the messages and their bytes.
+the planes in place (or added to them, for the adjoint of an exchange).
+The peers are ranks of a process group, the default one unless a sub-group
+is named (a member group of a batched ensemble on a member mesh). Under
+the gloo backend a plane on a card is staged through pinned host buffers
+(gloo's point-to-point calls take host tensors); under NCCL the strips go
+from card to card. ``ExchangeStats`` counts the messages and their bytes.
 
 ``exchange_halo``, ``extend_with_halo`` and ``strip_halo`` are the generic
 uniform-halo form of the JAX module: a block with ``halo`` rows and columns
@@ -58,11 +60,14 @@ def _staged(device) -> bool:
 
 
 def exchange_strips(planes: Sequence[torch.Tensor], sends: Dict[int, List[Strip]],
-                    recvs: Dict[int, List[Strip]], stats: ExchangeStats = None) -> None:
+                    recvs: Dict[int, List[Strip]], stats: ExchangeStats = None, *,
+                    group=None, accumulate: bool = False) -> None:
     """Send ``planes[i][index]`` of every strip in ``sends[peer]`` to
     ``peer``, and write what ``peer`` sends into the strips of
-    ``recvs[peer]``, in place. Both sides list a peer's strips in the same
-    order and of the same sizes. The planes share one dtype and device."""
+    ``recvs[peer]``, in place (add it with ``accumulate``). Both sides list
+    a peer's strips in the same order and of the same sizes. The planes
+    share one dtype and device. ``peer`` is a global rank of ``group``
+    (the default group when None)."""
     if not sends and not recvs:
         return
     stats = ExchangeStats() if stats is None else stats
@@ -77,7 +82,7 @@ def exchange_strips(planes: Sequence[torch.Tensor], sends: Dict[int, List[Strip]
             host = stats.host_buffer(("send", peer), buf.numel(), dtype)
             host.copy_(buf)
             buf = host
-        ops.append(dist.P2POp(dist.isend, buf, peer))
+        ops.append(dist.P2POp(dist.isend, buf, peer, group=group))
         stats.messages += 1
         stats.bytes += buf.numel() * buf.element_size()
     for peer, strips in recvs.items():
@@ -86,7 +91,7 @@ def exchange_strips(planes: Sequence[torch.Tensor], sends: Dict[int, List[Strip]
             buf = stats.host_buffer(("recv", peer), n, dtype)
         else:
             buf = torch.empty(n, dtype=dtype, device=device)
-        ops.append(dist.P2POp(dist.irecv, buf, peer))
+        ops.append(dist.P2POp(dist.irecv, buf, peer, group=group))
         unpack.append((buf, strips))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
@@ -95,17 +100,30 @@ def exchange_strips(planes: Sequence[torch.Tensor], sends: Dict[int, List[Strip]
         off = 0
         for i, idx in strips:
             dst = planes[i][idx]
-            dst.copy_(buf[off:off + dst.numel()].view(dst.shape))
+            src = buf[off:off + dst.numel()].view(dst.shape)
+            dst.add_(src) if accumulate else dst.copy_(src)
             off += dst.numel()
 
 
-def _neighbours(rank: int, mesh_shape):
+def _neighbours(rank: int, mesh_shape, periodic=(False, False)):
     """(south, north, west, east) ranks of ``rank`` in a row-major
-    (dpy, dpx) mesh, None beyond the edge."""
+    (dpy, dpx) mesh, None beyond the edge. Along an axis flagged in
+    ``periodic`` (y, x) with more than one block, the blocks at the edges
+    are each other's neighbours (the wrap-around of a periodic domain); a
+    single block along an axis has no neighbour there, periodic or not."""
     dpy, dpx = mesh_shape
     a, b = divmod(rank, dpx)
-    return (rank - dpx if a > 0 else None, rank + dpx if a < dpy - 1 else None,
-            rank - 1 if b > 0 else None, rank + 1 if b < dpx - 1 else None)
+
+    def step(pos, n, d, wrap):
+        q = pos + d
+        if 0 <= q < n:
+            return q
+        return q % n if wrap and n > 1 else None
+
+    south, north = step(a, dpy, -1, periodic[0]), step(a, dpy, 1, periodic[0])
+    west, east = step(b, dpx, -1, periodic[1]), step(b, dpx, 1, periodic[1])
+    return (None if south is None else south * dpx + b, None if north is None else north * dpx + b,
+            None if west is None else a * dpx + west, None if east is None else a * dpx + east)
 
 
 def exchange_halo(local: torch.Tensor, halo: int, mesh_shape, rank: int = None,

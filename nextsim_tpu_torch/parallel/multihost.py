@@ -11,8 +11,15 @@ that all ranks take the same output decisions in lockstep, and
 per-rank patches of ``moorings.parallel_output``.
 
 IMPORTANT: with a block layout, gather_to_host is COLLECTIVE: every rank
-must call it with the same tree, in the same order. The Simulator runs the
-same host logic on every rank, which guarantees that.
+of the layout's group must call it with the same tree, in the same order.
+The Simulator runs the same host logic on every rank, which guarantees
+that.
+
+Sub-groups: a batched ensemble on a member mesh (ensemble/batched.py) runs
+one group of ranks for each slot of members. ``member_groups`` makes them
+(every rank takes part in making every group, as ``dist.new_group`` asks),
+``gather_to_host`` takes the group of the layout's blocks, and
+``broadcast_host`` sends a host tree from one rank to all.
 """
 
 from __future__ import annotations
@@ -55,27 +62,40 @@ def _map(fn, tree):
     return tree
 
 
-def gather_to_host(tree, layout=None):
+def member_groups(n_groups: int):
+    """Split the world into ``n_groups`` groups of consecutive ranks, the
+    same size each: (the groups, in order, and the index of this rank's).
+    Collective: every rank calls it."""
+    size = process_count()
+    if size % n_groups:
+        raise ValueError(f"{n_groups} groups do not divide a world of {size} ranks")
+    per = size // n_groups
+    groups = [dist.new_group(ranks=list(range(g * per, (g + 1) * per))) for g in range(n_groups)]
+    return groups, process_index() // per
+
+
+def gather_to_host(tree, layout=None, group=None):
     """Host numpy copy of ``tree`` (see ``_map``) with the GLOBAL value of
     every leaf that is a block of ``layout`` (a ``seam.BlockLayout``): the
-    ranks' owned regions, all-gathered (one collective call for each dtype)
-    and put together. Other tensors are copied as they are. Without a layout
-    it is ``to_host``."""
+    owned regions of the ranks of ``group`` (the default group when None),
+    all-gathered (one collective call for each dtype) and put together.
+    Other tensors are copied as they are. Without a layout it is
+    ``to_host``."""
     if layout is None:
         return to_host(tree)
     blocks = []
     _map(lambda x: blocks.append(x) if layout.block_kind(x) else None, tree)
-    size = process_count()
+    size = dist.get_world_size(group)
     flat = {}
     for dtype in dict.fromkeys(x.dtype for x in blocks):
         mine = [layout.owned(x).reshape(-1) for x in blocks if x.dtype == dtype]
         buf = torch.cat(mine).detach()
         if buf.dtype == torch.bool:
             buf = buf.to(torch.uint8)
-        if buf.device.type == "cuda" and dist.get_backend() != "nccl":
+        if buf.device.type == "cuda" and dist.get_backend(group) != "nccl":
             buf = buf.cpu()
         parts = [torch.empty_like(buf) for _ in range(size)]
-        dist.all_gather(parts, buf)
+        dist.all_gather(parts, buf, group=group)
         flat[dtype] = [p.cpu().numpy() for p in parts]
     offsets = dict.fromkeys(flat, 0)
     ranks = [layout.for_rank(r) for r in range(size)]
@@ -96,3 +116,17 @@ def gather_to_host(tree, layout=None):
         return out.astype(bool) if dtype == torch.bool else out
 
     return _map(assemble, tree)
+
+
+def broadcast_host(arrays, src: int):
+    """The dict of host numpy ``arrays`` of rank ``src`` on every rank
+    (collective). Every rank passes a dict with the same keys, shapes and
+    dtypes; the others' values are overwritten."""
+    out = {}
+    for key, a in arrays.items():
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint8).reshape(-1)).clone()
+        if dist.get_backend() == "nccl":  # NCCL moves device tensors only
+            t = t.to(torch.device("cuda", torch.cuda.current_device()))
+        dist.broadcast(t, src=src)
+        out[key] = t.cpu().numpy().view(a.dtype).reshape(a.shape)
+    return out

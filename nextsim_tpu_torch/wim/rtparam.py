@@ -175,8 +175,8 @@ def _rtparam_fast(alp_nd, hnd, int_adm):
     mod_t_12 = torch.sqrt(torch.exp(-ac_12 / 2.0) / int_adm)
     # mode 3: z = Re R, Im R, Re T, Im T
     rr, ri, tr, ti = z[..., 0], z[..., 1], z[..., 2], z[..., 3]
-    arg_r_3 = torch.atan2(ri, rr)
-    arg_t_3 = torch.atan2(ti, tr)
+    arg_r_3 = ties.atan2(ri, rr)
+    arg_t_3 = ties.atan2(ti, tr)
     mod_r2 = rr * rr + ri * ri
     mod_t_3 = torch.sqrt(tr * tr + ti * ti)
     ac_3 = -2.0 * torch.log(ties.maximum(1.0 - mod_r2, 1e-30))

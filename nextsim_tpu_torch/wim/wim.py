@@ -25,6 +25,16 @@ take tensors with leading (frequency, direction) dimensions and roll and
 pad the last two, so one call serves a block of frequencies with all their
 directions; a run is a Python loop of substeps at the CFL-limited spectral
 dt, all branches masked arithmetic.
+
+On a device mesh (``Wim(mesh=seam)``, the JAX ``Wim(mesh=...)``) the
+spectrum and every ice and medium plane live on this rank's ext block of a
+layout of the WIM's own (parallel/seam.py: rings of ``seam.WIM_RING``
+cells, the reach of one time step; periodic where ``wim.advopt`` wraps),
+and the rings of the spectrum and of the floe fields are exchanged after
+every time step, through ``seam.RingExchange`` when a gradient is recorded.
+Every rank takes the same decisions: the frequencies a block holds follow
+the global grid's size, the ideal fields its coordinates, and ``run``'s
+test for an empty spectrum is maxed over the ranks.
 """
 from __future__ import annotations
 
@@ -37,7 +47,9 @@ import torch
 import torch.nn.functional as F
 
 from nextsim_tpu_torch.core import ties
+from nextsim_tpu_torch.core.state import to_host
 from nextsim_tpu_torch.ops.rheology import rdiv
+from nextsim_tpu_torch.parallel import seam
 from nextsim_tpu_torch.wim import rtparam
 
 PI = math.pi
@@ -302,7 +314,7 @@ def dave_from_dfloe(dfloe, ice_mask, p: WimParams, moment: int = 1):
         mm = ties.maximum(mm, 0.0)
 
         def powt(q, n):  # q**n for a Python q and a tensor n
-            return torch.pow(torch.full_like(n, q), n)
+            return ties.pow(torch.full_like(n, q), n)
 
         def geo(q, n):  # sum_{m=0}^{n-1} q^m, n>=0 (q != 1 here: ffac=3.6)
             return (powt(q, n) - 1.0) / (q - 1.0)
@@ -520,15 +532,19 @@ _ACC_KEYS = ("tau_x", "tau_y", "mwd_x", "mwd_y", "sd_x", "sd_y",
              "mom0w", "mom2w", "mom0", "mom2", "var_strain")
 
 
-def _freq_block(sdf) -> int:
-    """Frequencies advanced together: as many as _BLOCK_BYTES holds."""
-    nf, nd, ny, nx = sdf.shape
+def _freq_block(sdf, shape=None) -> int:
+    """Frequencies advanced together: as many as _BLOCK_BYTES holds for
+    planes of ``shape`` (default: the spectrum's own). The sums over a block
+    of frequencies group the integrals, so a block on a device mesh passes
+    the whole grid's shape and groups them as one device does."""
+    nf, nd = sdf.shape[:2]
+    ny, nx = sdf.shape[2:] if shape is None else shape
     per_freq = nd * (ny + 2 * _NG) * (nx + 2 * _NG) * sdf.element_size() * _WENO_LIVE
     return max(1, min(nf, _BLOCK_BYTES // per_freq))
 
 
 def wim_time_step(sdf, ice: Dict[str, Any], medium, sg_dev, p: WimParams,
-                  dt_wim, dx: float, land_mask, steady_in=None):
+                  dt_wim, dx: float, land_mask, steady_in=None, block: Optional[int] = None):
     """Advance the directional spectrum one WIM substep and do breaking.
 
     sdf: (nfreq, ndir, ny, nx); ice: dict with conc, thick, dfloe, nfloes,
@@ -536,8 +552,9 @@ def wim_time_step(sdf, ice: Dict[str, Any], medium, sg_dev, p: WimParams,
     optional (sdf_inc, steady_mask) for the steady-state forcing.
 
     No frequency depends on another within a substep, so the frequencies
-    are advanced in blocks, each with all its directions, and their
-    integrals are added up in frequency order.
+    are advanced in blocks (``block`` of them, default ``_freq_block``),
+    each with all its directions, and their integrals are added up in
+    frequency order.
     """
     conc, thick = ice["conc"], ice["thick"]
     imask = ice["mask"]
@@ -564,7 +581,7 @@ def wim_time_step(sdf, ice: Dict[str, Any], medium, sg_dev, p: WimParams,
 
     tau_fac = p.rhowtr * p.gravity
     nf = sdf.shape[0]
-    block = _freq_block(sdf)
+    block = _freq_block(sdf) if block is None else block
     sdf_new = torch.empty_like(sdf)
     tot = None
     for f0 in range(0, nf, block):
@@ -622,7 +639,7 @@ def wim_time_step(sdf, ice: Dict[str, Any], medium, sg_dev, p: WimParams,
         0.0,
     )
     mwd = torch.where(
-        mom2 > 0.0, -90.0 - (180.0 / PI) * torch.atan2(tot["mwd_y"], tot["mwd_x"]), 0.0
+        mom2 > 0.0, -90.0 - (180.0 / PI) * ties.atan2(tot["mwd_y"], tot["mwd_x"]), 0.0
     )
 
     # floe breaking (doBreaking, iceinfo.cpp:172-203)
@@ -669,10 +686,14 @@ class Wim:
     coupling window and receives wave stress + breakage.
 
     The spectrum and every ice and medium plane live on ``device`` (the
-    card unless the caller asks for the CPU).
+    card unless the caller asks for the CPU). With ``mesh``, the rank's
+    ``seam.Seam`` on a device mesh, they are this rank's ext blocks of the
+    WIM's layout (module docstring): ``set_ice_fields`` and
+    ``set_wave_fields`` take planes of that layout (``to_blocks`` cuts them
+    from global ones), and ``gather`` puts results together.
     """
 
-    def __init__(self, params: WimParams, grid, dtype=torch.float32, device="cuda"):
+    def __init__(self, params: WimParams, grid, dtype=torch.float32, device="cuda", mesh=None):
         self.p = params
         self.grid = grid
         self.dtype = dtype
@@ -680,11 +701,15 @@ class Wim:
         self.sg = spectral_grids(params)
         ny, nx = grid.shape
         self.shape = (ny, nx)
-        self.land = self._tensor(1.0 - np.asarray(grid.mask))
+        self.mesh = None
+        if mesh is not None:
+            wrap_y = params.advopt in ("xy-periodic", "y-periodic")
+            self.mesh = mesh.derive(seam.WIM_RING, periodic=(wrap_y, params.advopt == "xy-periodic"))
+        self.land = self.to_blocks(self._tensor(1.0 - np.asarray(grid.mask)))
         self.dx = float(grid.dx)
-        self.sdf = torch.zeros(
+        self.sdf = self.to_blocks(torch.zeros(
             (params.nwavefreq, params.nwavedirn, ny, nx), dtype=dtype, device=self.device
-        )
+        ))
         self.ice: Optional[Dict[str, Any]] = None
         self.diag: Dict[str, Any] = {}
         self._steady_in = None
@@ -697,6 +722,16 @@ class Wim:
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=self.dtype, device=self.device)
+
+    def to_blocks(self, tree):
+        """This rank's ext blocks of the global planes of ``tree`` on a
+        device mesh; ``tree`` itself on one device."""
+        return tree if self.mesh is None else self.mesh.to_blocks(tree)
+
+    def gather(self, tree):
+        """Host numpy copy of ``tree`` with the global value of every block
+        on a device mesh (collective)."""
+        return to_host(tree) if self.mesh is None else self.mesh.gather(tree)
 
     # -- ice / wave setup ------------------------------------------------
     def set_ice_fields(self, conc, vol, nfloes):
@@ -721,15 +756,18 @@ class Wim:
             mask=keep.to(self.dtype), broken=broken.to(self.dtype),
         )
 
-    def _x_edge(self, x, xfac: float) -> float:
+    def _x_edge(self, xfac: float) -> float:
+        """The edge of the ideal fields along x, from the whole grid's cell
+        centres (idealIceFields, wimdiscr.cpp:793-820)."""
+        x = self._tensor(np.arange(self.shape[1]) * self.dx)
         xmin, xmax = float(x.min()), float(x.max())
         return 0.5 * (xmin + xmax) - xfac * 0.5 * (xmax - xmin)
 
     def ideal_ice_fields(self, xfac: float = 0.7):
         """Uniform ice for x >= x_edge (idealIceFields, wimdiscr.cpp:793-820)."""
         p = self.p
-        x = self._tensor(self._cell_x())
-        in_ice = (x >= self._x_edge(x, xfac)) & (self.land < 0.5)
+        x = self._cell_x()
+        in_ice = (x >= self._x_edge(xfac)) & (self.land < 0.5)
         conc = torch.where(in_ice, torch.full_like(x, p.unifc), 0.0)
         vol = conc * p.unifh
         nfloes = torch.where(in_ice, torch.full_like(x, p.unifc / p.dfloe_pack_init**2), 0.0)
@@ -738,8 +776,8 @@ class Wim:
     def ideal_wave_fields(self, xfac: float = 0.8):
         """Incident waves for x < x_edge (idealWaveFields, wimdiscr.cpp:527-566)."""
         p = self.p
-        x = self._tensor(self._cell_x())
-        wave_mask = ((x < self._x_edge(x, xfac)) & (self.land < 0.5)).to(self.dtype)
+        x = self._cell_x()
+        wave_mask = ((x < self._x_edge(xfac)) & (self.land < 0.5)).to(self.dtype)
         hs = wave_mask * p.hs_inc
         tp_ = wave_mask * p.tp_inc
         mwd = wave_mask * p.mwd_inc
@@ -760,20 +798,29 @@ class Wim:
         if p.steady and self._steady_in is None:
             self._steady_in = (self.sdf, wave_mask)
 
-    def _cell_x(self):
-        return np.tile(np.arange(self.shape[1]) * self.dx, (self.shape[0], 1))
+    def _cell_x(self) -> torch.Tensor:
+        """x of the cell centres of this rank's planes, in the whole grid's
+        coordinates."""
+        return self.to_blocks(self._tensor(np.tile(np.arange(self.shape[1]) * self.dx, (self.shape[0], 1))))
 
     # -- integration -----------------------------------------------------
     def _run_scan(self, sdf, ice, medium, steady_in, dt_wim, n_steps: int):
         """``n_steps`` WIM time steps from (sdf, ice) on ``medium``: (sdf,
         ice, the last step's diagnostics). Pure, so differentiable; the
         steady input may be zeros when ``p.steady`` is off, as the JAX
-        package passes it."""
+        package passes it. On a device mesh the rings of the spectrum and
+        of the floe fields breaking changes are exchanged after every time
+        step."""
         diag = {}
+        block = _freq_block(sdf, self.shape)  # from the whole grid, as one device takes them
         for _ in range(n_steps):
             sdf, ice, diag = wim_time_step(
                 sdf, ice, medium, self._sg_dev, self.p, dt_wim, self.dx, self.land, steady_in,
+                block=block,
             )
+            if self.mesh is not None:
+                sdf, *floes = self.mesh.ring([sdf] + [ice[k] for k in _FLOE_KEYS])
+                ice = dict(ice, **dict(zip(_FLOE_KEYS, floes)))
         return sdf, ice, diag
 
     def run(self, duration: float) -> Dict[str, Any]:
@@ -781,8 +828,8 @@ class Wim:
         wimdiscr.cpp:1938-2050). Returns the final diagnostics dict."""
         if self.ice is None:
             self.ideal_ice_fields(0.7)
-        # one read-back per run
-        if self._steady_in is None and not bool(torch.any(self.sdf > 0)):
+        # one read-back per run, the same answer on every rank of a mesh
+        if self._steady_in is None and not self._any(self.sdf > 0):
             self.ideal_wave_fields(0.8)
         n_steps = max(1, int(math.ceil(duration / self.dt_cfl)))
         dt_wim = self._tensor(duration / n_steps)
@@ -793,3 +840,15 @@ class Wim:
         self.sdf, self.ice, self.diag = self._run_scan(
             self.sdf, self.ice, medium, steady, dt_wim, n_steps)
         return self.diag
+
+    def _any(self, flags: torch.Tensor) -> bool:
+        """``flags.any()`` over the whole grid (over the ranks of a mesh)."""
+        hit = torch.any(flags)
+        if self.mesh is None:
+            return bool(hit)
+        return bool(self.mesh.max_all(hit.to(torch.int32)))
+
+
+#: the floe fields a WIM time step changes (breaking), exchanged with the
+#: spectrum on a device mesh
+_FLOE_KEYS = ("dfloe", "nfloes", "broken")

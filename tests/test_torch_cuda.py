@@ -34,7 +34,9 @@ magnitude there.
 A device mesh's blocks: the kernel on ext blocks (rings of H + 1 cells,
 cut at the domain's edge) in H-substep calls equals H-substep calls over the
 whole grid on the owned cells, bitwise, for corner, edge and interior
-blocks.
+blocks; so does a WIM time step on the WIM's layout of the blocks (rings of
+4 cells, periodic where ``wim.advopt`` wraps). ``seam.RingExchange`` on
+planes on the card passes gradcheck in a world of two ranks sharing it.
 
 Reverse mode on the card (``momentum_cuda.SubstepLoop``): the gradient
 through ``substep_loop`` against straight autograd through the plain loop
@@ -437,3 +439,54 @@ def test_dataset_forcing_on_the_card_equals_the_cpu(cuda, dtype_name, tmp_path, 
                 assert x.device.type == "cuda" and x.dtype == dt, f.name
                 torch.testing.assert_close(x.cpu(), y, rtol=0, atol=0, msg=f.name)
     assert float(a.ocean_u.abs().max()) > 0.0 and float(a.wind_u.std()) > 0.0 and float(a.depth.std()) > 0.0
+
+
+# ---------------------------------------------------------------------------
+# the ring exchange and the WIM's blocks on the card
+# ---------------------------------------------------------------------------
+
+def test_ring_exchange_gradcheck_on_the_card(cuda):
+    """``RingExchange`` on planes on the card (two ranks sharing it: gloo,
+    the strips staged through pinned host memory) passes gradcheck in
+    float64, for a cell, a node and three stacked planes in one ring."""
+    import torch_mesh_worker as worker
+    from nextsim_tpu_torch.parallel.distributed import run_world
+
+    run_world(worker.ring_gradcheck, 2, args=(8, 5, 2, ("cell", "node", "stack"), "cuda"), device="cuda",
+              timeout=300)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+@pytest.mark.parametrize("advopt", ["y-periodic", "xy-periodic"])
+def test_wim_step_on_ext_blocks_equals_the_whole_grid(cuda, advopt, dtype_name):
+    """The WIM on a device mesh without the ranks: on every block of a 2x2
+    mesh over the 16 x 64 strip, in the WIM's layout (rings of WIM_RING
+    cells, periodic where ``advopt`` wraps), the whole grid's spectrum and
+    floe fields cut as an exchange leaves them; one ``wim_time_step`` on
+    the block gives the owned cells of the whole grid's step, bitwise,
+    three steps running."""
+    import torch_mesh_worker as worker
+    from nextsim_tpu_torch.wim import wim as pw
+
+    dtype = getattr(torch, dtype_name)
+    w = pw.Wim(pw.WimParams(nwavefreq=5, nwavedirn=8, steady=True, advopt=advopt), worker.PatchGrid(), dtype,
+               device="cuda")
+    worker.patchy_setup(w)
+    medium = pw.update_wave_medium(w.ice["thick"], w.ice["mask"], w._sg_dev, w.p)
+    dt = w._tensor(w.dt_cfl)
+    states = [(w.sdf, w.ice)]
+    for _ in range(3):
+        sdf, ice, _ = pw.wim_time_step(*states[-1], medium, w._sg_dev, w.p, dt, w.dx, w.land, w._steady_in)
+        states.append((sdf, ice))
+    for rank in range(4):
+        lay = seam.BlockLayout(16, 64, 2, 2, *divmod(rank, 2), seam.WIM_RING,
+                               (True, advopt == "xy-periodic"))
+        ext = lay.to_ext
+        steady = tuple(ext(x) for x in w._steady_in)
+        for g in range(3):
+            sdf, ice, _ = pw.wim_time_step(ext(states[g][0]), ext(states[g][1]), ext(medium), w._sg_dev, w.p, dt,
+                                           w.dx, ext(w.land), steady, block=pw._freq_block(w.sdf))
+            for name, o, r in [("sdf", sdf, states[g + 1][0])] + [(k, ice[k], states[g + 1][1][k])
+                                                                   for k in ("dfloe", "nfloes", "broken")]:
+                torch.testing.assert_close(lay.owned(o), lay.owned(ext(r)), rtol=0, atol=0,
+                                           msg=lambda m: f"block {rank}, step {g}, {name}: {m}")

@@ -17,7 +17,8 @@ holds the rank functions).
 * The port's 2x2 run against the JAX package's single-device run in float64
   after 3 steps of 60 substeps: every field within 1e-9 of its magnitude.
 * The mesh's own errors: sizes that do not divide, a halo depth the blocks
-  or the substeps cannot take, a gradient through an exchange.
+  or the substeps cannot take. (Gradients through the exchanges:
+  tests/test_torch_parallel_grad.py.)
 
 Every world joins its process group with a timeout and is joined with one,
 so a deadlock fails in seconds.
@@ -245,13 +246,6 @@ def test_mesh_refuses(over, match, monkeypatch):
     cfg = {**MESH_SLICE, "grid.nx": 16, "grid.ny": 16, "tpu.mesh_shape": "2x2", **over}
     with pytest.raises(ValueError, match=match):
         Simulator(Config(overrides=cfg), device="cpu")
-
-
-def test_gradient_through_an_exchange_raises():
-    lay = seam.BlockLayout(8, 8, 2, 2, 0, 0, 2)
-    plane = torch.zeros(lay.ext_shape(False), dtype=torch.float64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.14c"):
-        seam.Seam(lay, 1).ring([plane * 2.0])
 
 
 def test_block_layout_index_ranges():

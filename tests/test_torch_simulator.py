@@ -459,11 +459,12 @@ def test_constant_forcing_matches_jax():
 # ---------------------------------------------------------------------------
 
 # a mesh runs one rank per block: in one process it is an error that names
-# torchrun; the WIM on a mesh and bfloat16 are still to be ported
+# torchrun, the WIM on a mesh too (tests/test_torch_parallel_waves.py runs it
+# on 4 ranks); bfloat16 is still to be ported
 UNPORTED = {
     "mesh": ({"tpu.mesh_shape": "2x4"}, ValueError, "torchrun --nproc-per-node 8"),
     "shard_map": ({"tpu.mesh_shape": "2x2", "tpu.partition_mode": "shard_map",
-                   "nextwim.use_wim": True}, NotImplementedError, "ROADMAP A.14b"),
+                   "nextwim.use_wim": True}, ValueError, "torchrun --nproc-per-node 4"),
     "bfloat16": ({"tpu.dtype": "bfloat16"}, NotImplementedError, "ROADMAP A.16"),
 }
 
