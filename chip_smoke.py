@@ -20,15 +20,19 @@ printing a line; any failure raises and ends the run with a non-zero exit:
 4. the golden toy run (48^2, 15 steps) against tests/golden_toy_fields.npz;
 5. the thermo-off main path: the 464^2 10 km arctic configuration of
    bench.py through ``Simulator(cfg, device="cuda").step_chunk()`` for 30
-   steps; all fields finite, zero violations, and every substep launched
-   through the kernel (the launch plan's count);
+   steps, twice: the first call runs the 30-step program eagerly and
+   captures it as a CUDA graph, the second is one replay of the graph (its
+   ms/step); all fields finite, zero violations, and every substep launched
+   through the kernel in both (the launch plan's count; a replay counts the
+   launches its graph holds);
 6. one 120-substep loop at 464^2 in float32, kernel beside plain, with the
    least time the card could take for it (its bound) and the share reached;
 7. 3 steps at 1216^2 and 5 km (1.48M cells), finite with zero violations,
    and the kernel's time for one 120-substep loop there beside its bound;
 8. the main path with thermodynamics on (the default Winton slab and young
    ice, configs/arctic_10km.cfg's ice): the same 464^2 configuration through
-   ``step_chunk()`` for 30 steps; all fields finite, zero violations, and
+   ``step_chunk()`` for 30 steps, one replay of the graph captured at a
+   first call; all fields finite, zero violations, and
    every substep launched through the kernel (its launch count is the one
    the JSON record reports);
 9. one float64 ``thermo_step`` on the phase-8 state on the card against the
@@ -115,7 +119,7 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    kernel launches, device busy and peak memory of each;
 24. a device mesh: 4 ranks of a 2x2 mesh spawned on the card (gloo with the
    strips staged through pinned host memory when they share one card, NCCL
-   when each has its own): phase 8's 464^2 thermo-on configuration for 10
+   when each has its own): phase 8's 464^2 thermo-on configuration for 6
    steps, bbm and evp at tpu.halo_depth 1 and 6, the gathered state
    bitwise equal to the single-device Simulator; the kernel on rank 0's
    ext block against the plain loop (bitwise); 1216^2 at 5 km, thermo on,
@@ -155,13 +159,22 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    difference from float32); configs/toy.cfg through the CLI in bfloat16,
    3 steps and a resume for 3 more against 6 uninterrupted (bitwise, the
    restart's planes |V2); one bfloat16 gradient of phase 23's thermo-off
-   loss through SubstepLoop (ms, launches, peak memory).
+   loss through SubstepLoop (ms, launches, peak memory);
+29. the captured step against the eager loop: at 608^2 on the dataset files
+   (phase 11's Simulator, kept until then) and at 464^2 thermo off and on,
+   30-step chunks from one state,
+   ``step_chunk_eager`` and ``step_chunk`` (one graph replay) in turns,
+   every result bitwise equal; ms/step of each, the device-busy share of
+   each under torch.profiler, the graph's nodes, capture and instantiation
+   seconds and pool; then ``python -m nextsim_tpu_torch.bench`` as a
+   subprocess and its line.
 
 The line before the last is the JSON record of the kernel (its launches
-summed over the paths of phases 5, 8, 11, 14, 17, 19, 22, 23, 24, 25, 26,
-27 and 28 (the mesh paths summed over their ranks), each counted from zero,
-none of them zero; ``bf16_bitwise`` by rheology and the bfloat16 loop's
-times); the last line is
+summed over the paths of phases 5 (the eager first call and the replay,
+``main_graph``), 8, 11, 14, 17, 19, 22, 23, 24, 25, 26, 27 and 28 (the mesh
+paths summed over their ranks), each counted from zero, none of them zero;
+``bf16_bitwise`` by rheology and the bfloat16 loop's times; phase 29's
+numbers under ``captured``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1113,7 +1126,8 @@ def profiled(fn, top=0, host_events=True):
     launches = sum(e.count for e in ka if e.key in LAUNCH_EVENTS) or sum(
         e.count for e in on_card if not e.key.startswith(NOT_KERNELS))
     if busy <= 0.0 or launches == 0:
-        raise AssertionError("torch.profiler recorded no device activity")
+        raise AssertionError(f"torch.profiler recorded no device activity ({len(ka)} entries, "
+                             f"{len(on_card)} on the card: {[e.key[:40] for e in on_card[:5]]})")
     if top:
         first = sorted(on_card, key=lambda e: -e.self_device_time_total)[:top]
         return wall, busy, launches, "; ".join(
@@ -2077,7 +2091,7 @@ def gradient_phase(smi: str) -> int:
 # --- 24. multi-device runs -----------------------------------------------------
 
 MESH_RANKS = 4  # a 2x2 mesh
-MESH_STEPS = 10
+MESH_STEPS = 6
 MESH_BIG = dict(BENCH_THERMO, **{"grid.nx": 1216, "grid.ny": 1216, "grid.resolution": 5e3})
 MESH_CLI = ["--config-files", "configs/toy.cfg", "simul.duration=0.0625", "moorings.snapshot=false",
             "moorings.output_timestep=0.020833333333333332", "output.output_per_day=48",
@@ -2201,7 +2215,7 @@ def _same_files(a: Path, b: Path) -> int:
 def mesh_phase(smi: str):
     """Phase 24: a 2x2 mesh of 4 ranks (gloo with host-staged strips when
     they share a card, NCCL when each has its own): the 464^2 thermo-on
-    main path, 10 steps, bbm and evp at halo depth 1 and 6, gathered state
+    main path, 6 steps, bbm and evp at halo depth 1 and 6, gathered state
     bitwise = the single-device Simulator; 1216^2 at 5 km, thermo on, H = 6,
     3 steps timed after one; the CLI on toy.cfg with moorings, snapshots,
     drifters and a final restart on 4 ranks = on one process, bitwise.
@@ -2844,6 +2858,110 @@ def bf16_phase(smi: str, host_state: dict, spun: dict) -> tuple:
     return launches, bitwise, ms["bfloat16"], plain_ms, bound_ms
 
 
+# --- 29. the captured step and chunk ----------------------------------------
+
+
+#: steps under torch.profiler in phase 29 (its device time a step)
+PROFILED_STEPS = 5
+
+
+def captured_vs_eager(label: str, sim, smi: str, k: int = 30) -> dict:
+    """Phase 29 for one configuration: ``step_chunk_eager(k)`` (the eager
+    oracle), ``step_chunk(k)`` (one replay of the k-step graph) and k
+    ``step()`` calls (k replays of the one-step graph) from the same state,
+    in turns (eager, captured, steps, steps, captured, eager, after one of
+    each to warm up and capture), every result bitwise equal to the first
+    eager one; ms/step of each (host wall, synchronized); the device time a
+    step under torch.profiler (the card's own entries) of the eager loop and
+    of the one-step graph's replays, over ``PROFILED_STEPS`` steps, and its
+    share of the eager loop's and the one-step replays' ms/step; the k-step graph's
+    nodes, capture and instantiation seconds and pool, and the substep
+    kernel's launches of a replay."""
+    import torch
+
+    from nextsim_tpu_torch.ops import momentum_cuda
+
+    state0, pcpt0 = sim.state, sim.pcpt
+
+    def steps(n):
+        for _ in range(n):
+            sim.step()
+
+    def run(mode):
+        sim.state, sim.pcpt, sim._pending_viol = state0, pcpt0, None
+        sync()
+        t0 = time.perf_counter()
+        {"eager": sim.step_chunk_eager, "captured": sim.step_chunk, "steps": steps}[mode](k)
+        sync()
+        return time.perf_counter() - t0, sim.state
+
+    results = {}
+    t_eager, ref = run("eager")  # warm-up
+    _, got_steps = run("steps")  # the one-step graph's capture
+    t0 = time.perf_counter()
+    _, got = run("captured")  # the eager warm-up of the program and its capture
+    first_s = time.perf_counter() - t0
+    stats = dict(sim._program.stats)
+    walls = {"eager": [], "captured": [], "steps": []}
+    outs = [got, got_steps]
+    for mode in ("eager", "captured", "steps", "steps", "captured", "eager"):
+        launches = momentum_cuda.launches
+        wall, out = run(mode)
+        walls[mode].append(wall)
+        outs.append(out)
+        if mode == "captured":
+            results["replay_launches"] = momentum_cuda.launches - launches
+    for n, out in enumerate(outs):
+        for f in ref.__dataclass_fields__:
+            a, b = getattr(ref, f), getattr(out, f)
+            if a is not None and not torch.equal(a, b):
+                raise AssertionError(f"{label}: run {n}: {f} of the captured chunk is not the eager loop's bitwise")
+    # device time a step under torch.profiler over PROFILED_STEPS steps: the
+    # eager loop, and replays of the one-step graph, whose kernels are those
+    # of each step of the k-step graph
+    busy = {}
+    for mode, fn in (("eager", lambda: sim.step_chunk_eager(PROFILED_STEPS)),
+                     ("captured", lambda: steps(PROFILED_STEPS))):
+        sim.state, sim.pcpt, sim._pending_viol = state0, pcpt0, None
+        busy[mode] = profiled(fn, host_events=False)[1] / PROFILED_STEPS
+    ms = {mode: 1e3 * min(w) / k for mode, w in walls.items()}
+    share = {"eager": busy["eager"] / ms["eager"], "steps": busy["captured"] / ms["steps"]}
+    results.update(ms_eager=ms["eager"], ms_captured=ms["captured"], ms_steps=ms["steps"], walls=walls,
+                   busy_ms=busy,
+                   busy_share=share, first_call_s=first_s, **stats)
+    pool = stats["pool_bytes"] / 2**20
+    phase("captured", f"{label}, {k}-step chunks: eager {ms['eager']:.2f} ms/step, captured "
+          f"{ms['captured']:.2f} ms/step (host wall, best of 2 each, in turns eager, captured, steps, steps, "
+          f"captured, eager: {[round(1e3 * w / k, 2) for w in walls['eager']]} / "
+          f"{[round(1e3 * w / k, 2) for w in walls['captured']]}); {k} replays of the one-step graph "
+          f"{ms['steps']:.2f} ms/step ({[round(1e3 * w / k, 2) for w in walls['steps']]}); device busy "
+          f"{busy['eager']:.2f} / {busy['captured']:.2f} ms a step (torch.profiler over {PROFILED_STEPS} steps: "
+          f"eager, one-step replays), so busy {100 * share['eager']:.1f}% / {100 * share['steps']:.1f}% of the "
+          f"eager loop's / the one-step replays' wall; the graph: {stats['nodes']} nodes, capture "
+          f"{stats['capture_s']:.2f} s, instantiation {stats['instantiate_s']:.2f} s (uploaded: "
+          f"{stats['uploaded']}), pool {pool:.1f} MiB, "
+          f"{stats['kernel_launches']} substep-kernel launches a replay; first call (eager warm-up + capture) "
+          f"{first_s:.2f} s; bitwise equal to the eager loop in {len(outs)} runs; {smi}")
+    sim.state, sim.pcpt = state0, pcpt0
+    return results
+
+
+def bench_subprocess(smi: str) -> dict:
+    """``python -m nextsim_tpu_torch.bench`` as a subprocess: its one JSON
+    line."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "nextsim_tpu_torch.bench"], cwd=ROOT, capture_output=True,
+                       text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"the bench failed ({r.returncode}): {r.stderr[-3000:]}")
+    line = r.stdout.strip().splitlines()[-1]
+    out = json.loads(line)
+    if out["metric"] != "bbm_momentum_ocean_cell_substeps_per_s_per_chip" or out["value"] <= 0:
+        raise AssertionError(f"the bench's line is not bench.py's: {line}")
+    phase("bench", f"python -m nextsim_tpu_torch.bench in {time.perf_counter() - t0:.1f} s (process included): {line}")
+    return out
+
+
 @contextlib.contextmanager
 def data_dir(path: Path):
     """NEXTSIM_DATA_DIR set to ``path`` inside the block."""
@@ -2946,17 +3064,21 @@ def main() -> int:
                 raise AssertionError(f"golden {name}: {n_bad} cells beyond {atol} (budget {budget})")
             phase("golden", f"{name}: {n_bad} cells beyond atol {atol} (budget {budget}), max |diff| {diff.max():.3e}")
 
-    # 5. main path
+    # 5. main path: the 30-step program, run eagerly and captured at its
+    # first call ("main"), one graph replay at the second ("main_graph")
     sim = make_sim(BENCH)
-    sim.step()  # warm-up step outside the count and the timing
+    momentum_cuda.launches = 0
+    t0 = time.perf_counter()
+    sim.step_chunk()
     sync()
+    first_s = time.perf_counter() - t0
+    path_launches = {"main": momentum_cuda.launches}  # the kernel's launches on every path driven
     momentum_cuda.launches = 0
     t0 = time.perf_counter()
     sim.step_chunk()
     sync()
     wall = time.perf_counter() - t0
-    launches = momentum_cuda.launches
-    path_launches = {"main": launches}  # the kernel's launches on every path driven
+    launches = path_launches["main_graph"] = momentum_cuda.launches
     k = sim.cfg["tpu.steps_per_call"]
     substeps = sim.dyn.substeps
     for f in ("conc", "thick", "damage", "sigma", "vt_u", "vt_v", "ut_u", "ut_v"):
@@ -2966,13 +3088,15 @@ def main() -> int:
     if viol.any():
         raise AssertionError(f"main path: violations {checks.describe(viol)}")
     per_loop = momentum_cuda.launches_for(substeps, *sim.grid.shape)
-    if launches != per_loop * k:
-        raise AssertionError(f"main path: {launches} kernel launches, expected {per_loop * k}")
+    if path_launches["main"] != per_loop * k or launches != per_loop * k:
+        raise AssertionError(f"main path: {path_launches} kernel launches, expected {per_loop * k} each")
     ocean = int(sim.grid.mask.sum())
-    phase("main", f"464^2 bbm, {k} steps in {wall:.3f} s: {1e3 * wall / k:.2f} ms/step, "
+    graph = sim._program.stats
+    phase("main", f"464^2 bbm, {k} steps as one CUDA graph replay in {wall:.3f} s: {1e3 * wall / k:.2f} ms/step, "
           f"{ocean * substeps * k / wall:.4e} ocean-cell-substeps/s ({ocean} ocean cells); "
-          f"{launches} kernel launches ({per_loop} a step); max speed {float(torch.hypot(sim.state.vt_u, sim.state.vt_v).max()):.3f} m/s; "
-          f"zero violations; {smi}")
+          f"{launches} kernel launches ({per_loop} a step); the first call (eager + capture of "
+          f"{graph['nodes']} nodes) {first_s:.2f} s; max speed "
+          f"{float(torch.hypot(sim.state.vt_u, sim.state.vt_v).max()):.3f} m/s; zero violations; {smi}")
 
     # 6. one 120-substep loop at 464^2, kernel beside plain (CUDA events)
     def timed(fn, sim, reps=3):
@@ -3011,9 +3135,10 @@ def main() -> int:
           f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms): the kernel reaches {100 * bound_ms_1216 / ms_1216:.1f}% "
           f"of it; {smi}")
 
-    # 8. the thermo-on main path
+    # 8. the thermo-on main path: one replay of the 30-step graph, captured
+    # at the first call
     sim = make_sim(BENCH_THERMO)
-    sim.step()  # warm-up step outside the count and the timing
+    sim.step_chunk()
     sync()
     momentum_cuda.launches = 0
     t0 = time.perf_counter()
@@ -3033,7 +3158,8 @@ def main() -> int:
     path_launches["thermo"] = launches
     if float(sim.state.conc.max()) < 0.5:
         raise AssertionError("thermo-on main path: the ice melted away")
-    phase("thermo", f"464^2 bbm, thermo on, {k} steps in {wall:.3f} s: {1e3 * wall / k:.2f} ms/step, "
+    phase("thermo", f"464^2 bbm, thermo on, {k} steps as one CUDA graph replay in {wall:.3f} s: "
+          f"{1e3 * wall / k:.2f} ms/step, "
           f"{ocean * substeps * k / wall:.4e} ocean-cell-substeps/s; {launches} kernel launches; "
           f"conc {float(sim.state.conc.min()):.3f}..{float(sim.state.conc.max()):.3f}, "
           f"sst {float(sim.state.sst.min()):.3f}..{float(sim.state.sst.max()):.3f} C; zero violations; {smi}")
@@ -3061,6 +3187,7 @@ def main() -> int:
             sim, path_launches["datasets"], dataset_ms = dataset_cli_run(tmp / "data", tmp / "run", smi)
             dataset_err = dataset_kernel_and_forcing(sim, smi)
             dataset_timings(sim, smi)
+            dataset_sim = sim  # phase 29 steps it again while its files exist
             del sim
             wave_err = wave_phases(tmp, smi, dataset_ms, path_launches)
         nested_card_vs_cpu(tmp, smi)
@@ -3086,9 +3213,21 @@ def main() -> int:
         del ens
         path_launches["mesh_gradient"] = mesh_gradient_phase(tmp, smi, single_grads)
 
-    # 28. the bfloat16 state
-    momentum_cuda.launches = 0
-    path_launches["bf16"], bf16_bitwise, bf16_ms, bf16_plain_ms, bf16_bound_ms = bf16_phase(smi, host_state, spun)
+        # 28. the bfloat16 state
+        momentum_cuda.launches = 0
+        path_launches["bf16"], bf16_bitwise, bf16_ms, bf16_plain_ms, bf16_bound_ms = bf16_phase(
+            smi, host_state, spun)
+
+        # 29. the captured chunk against the eager loop: 608^2 on phase 11's
+        # Simulator and files, then 464^2 thermo off and on; last, as every
+        # phase that profiles eager code runs before it
+        with data_dir(tmp / "data"):
+            captured = {"608^2 datasets, thermo on": captured_vs_eager(
+                "608^2 arctic_10km.cfg on ERA5 + TOPAZ4 + ETOPO, thermo on", dataset_sim, smi)}
+        del dataset_sim
+    for label, over in (("464^2 thermo off", BENCH), ("464^2 thermo on", BENCH_THERMO)):
+        captured[label] = captured_vs_eager(label, make_sim(over), smi)
+    bench = bench_subprocess(smi)
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     if min(path_launches.values()) <= 0:
         raise AssertionError(f"a path ran without the kernel: {path_launches}")
@@ -3112,6 +3251,11 @@ def main() -> int:
         "bf16_ms": bf16_ms,
         "bf16_plain_ms": bf16_plain_ms,
         "bf16_bound_ms": bf16_bound_ms,
+        "captured": {label: {key: r[key] for key in ("ms_eager", "ms_captured", "ms_steps", "busy_share", "nodes",
+                                                      "capture_s", "instantiate_s", "pool_bytes",
+                                                      "replay_launches")}
+                     for label, r in captured.items()},
+        "bench_ocean_cell_substeps_per_s": bench["value"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

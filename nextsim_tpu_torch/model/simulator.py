@@ -12,14 +12,31 @@ One model step, as FiniteElement::step (reference: model/finiteelement.cpp:
     transport (advection + ridging)  ->  nesting sponge  ->
     checkFieldsFast violations
 
-PyTorch runs eagerly, so there is no jit and no scan: ``step`` runs one step
-and ``step_chunk`` runs ``tpu.steps_per_call`` steps as a Python loop. The
-violation flags are maxed on the device and read back once per chunk (or per
-``tpu.check_interval`` steps), never per step inside a chunk. The moorings
-running means accumulate on the device every step; every other output
-(moorings records, drifters, snapshots, restarts) is checked once per step
+On the card a step and a chunk of ``tpu.steps_per_call`` steps are each one
+replay of a captured CUDA graph (``model/captured.py``), as the JAX package
+jits ``_build_step_fn`` and scans ``_build_chunk_fn``. The host first
+gathers the chunk's k inputs in the JAX package's order: the provider's k
+forcing bundles, the WIM exchange (before the chunk's first step) and its
+fields, the coupler's received fields, the outer run's fields, and the k
+time-flag sets (``time_flags``, one device tensor). The graph copies them
+into its static buffers (a tensor already there is not copied again) and
+runs the k steps: thermodynamics, the FSD, the substep kernel's launches and
+the rest of the momentum solve, transport and ridging, nesting, the checks,
+and the moorings' and coupler's sums over the chunk (``_chunk_body``). The
+host then adds those sums to the running means once a chunk. ``step`` is
+the program of one step, so ``run`` replays a graph for every
+``tpu.steps_per_call``, 1 included. On the CPU the same body runs eagerly.
+The violation flags are maxed on the device and read back once per chunk
+(or per ``tpu.check_interval`` steps); every output is checked once per step
 or chunk, and ``run`` clamps the chunk length so that it divides each exact
 output cadence, as the JAX package does.
+
+Three configurations keep the eager step loop (``step_eager``,
+``step_chunk_eager``, also the captured program's oracle) and log why at
+their first step: a device mesh (its rings go through torch.distributed),
+FSD Roach welding (``fsd.welding_roach`` reads back twice a call) and a
+perturbed ensemble member (its AR(1) chain draws from a torch.Generator,
+which the JAX package advances inside its chunk program).
 
 A device mesh (``tpu.mesh_shape = DPYxDPX``) runs one torch.distributed
 rank per block (parallel/seam.py): each rank holds its ext block of the
@@ -79,6 +96,7 @@ from nextsim_tpu_torch.core.state import State, state_from_numpy, to_host
 from nextsim_tpu_torch.forcing.providers import make_provider
 from nextsim_tpu_torch.grid.grid import Grid
 from nextsim_tpu_torch.model import checks, init_state, params
+from nextsim_tpu_torch.model.captured import Captured
 from nextsim_tpu_torch.model.nesting_source import make_nesting_source
 from nextsim_tpu_torch.model.params_thermo import thermo_params
 from nextsim_tpu_torch.ops import fsd as fsd_ops
@@ -90,6 +108,9 @@ from nextsim_tpu_torch.utils.logging import get_logger
 from nextsim_tpu_torch.utils.timer import Timer
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
+
+#: the per-step time flags of ``time_info``, in the column order of ``time_flags``
+TIME_FLAGS = ("is_day_start", "is_day_end", "is_0915", "is_0801", "is_myi_reset_date")
 
 
 #: what a bfloat16 run refuses: the JAX package's own run fails there
@@ -258,6 +279,14 @@ class Simulator:
                 min=1.0,
             ))
 
+        # the step and chunk program: one CUDA graph replay a call on the
+        # card, or the eager loop where a graph cannot hold the step
+        self.eager_reason = self._eager_reason()
+        self._eager_logged = False
+        self._program = Captured(self._chunk_body, name="step program", log=self.log,
+                                 capture=self.eager_reason is None)
+        self._flags = {}
+
         opd = cfg["output.output_per_day"]
         if opd > 0:
             self.export_interval_steps = max(1, int(round(phys.days_in_sec / opd / self.dt)))
@@ -401,28 +430,47 @@ class Simulator:
         diag["dmax"], diag["dmean"] = fsd_ops.dmax_dmean(cf, fp, fb)
         return state.replace(conc_fsd=cf, conc_mech_fsd=mech, damage=damage)
 
-    def _advance(self, wim_gate: bool = True, chunked: bool = False) -> None:
-        """One step: forcing, the coupler's received fields, the outer run's
-        fields, the WIM exchange when ``wim_gate`` is set and one is due, and
-        the time flags at the step's time (host, timed as "forcing"), the
-        device step, the step counter; violations and the coupler's sums
-        accumulate on the device.
+    def _eager_reason(self) -> Optional[str]:
+        """Why this configuration keeps the eager step loop on the card, or
+        None when a step and a chunk are graph replays."""
+        if self.mesh is not None:
+            return ("a device mesh exchanges rings through torch.distributed inside the step "
+                    "(NCCL graphs on a mesh: ROADMAP)")
+        fp = self.fsd_params
+        if fp is not None and self.use_thermo and fp.welding_type == "roach":
+            return ("FSD Roach welding reads back twice a call (ops/fsd.py welding_roach: "
+                    "bool(active.any()) and int(ndt.max()))")
+        if self.cfg["statevector.ensemble_member"] > 0:
+            return ("a perturbed ensemble member draws its AR(1) chain from a torch.Generator, "
+                    "which the JAX package advances inside its chunk program; a graph needs the "
+                    "generator registered with it (ROADMAP)")
+        return None
+
+    def _log_eager(self) -> None:
+        if not self._eager_logged:
+            self._eager_logged = True
+            self.log.info(f"step and step_chunk run the eager step loop on {self.device}: {self.eager_reason}")
+
+    def _step_inputs(self, i: int = 0, wim_gate: bool = True, chunked: bool = False):
+        """The inputs of the step ``i`` steps after the current one:
+        (forcing, nest, time flags as host numbers). The provider's forcing,
+        the coupler's received fields, the outer run's fields, the WIM
+        exchange when ``wim_gate`` is set and one is due.
 
         The overlays follow the JAX package path by path: ``step`` applies
         the WIM's fields last, so they win over a received ``wlbk`` or wave
         stress; ``step_chunk`` (``chunked``) runs the WIM exchange on the
         provider's forcing and applies its fields first, so the received and
         nested fields win."""
-        self.timer.tick("forcing")
-        forcing = self._next_forcing()
+        t = self.time_after(i)
+        forcing = self._next_forcing(t)
         if chunked and self.wim is not None:
             forcing = self._wim_forcing(forcing, wim_gate)
         if self.coupler is not None:
             forcing = self.coupler.apply_received(forcing)
         nest = None
         if self.nesting is not None:
-            outer = self.to_blocks(
-                self.nesting[2].fields_at(self.current_time + self.dt * dates.DAYS_IN_SEC))
+            outer = self.to_blocks(self.nesting[2].fields_at(t + self.dt * dates.DAYS_IN_SEC))
             if self.cfg["nesting.use_ocean_nesting"] and outer and "sst" in outer and "sss" in outer:
                 # outer-run SST/SSS become the slab-ocean nudging targets
                 # (reference: forcingOcean ocean-nesting branch,
@@ -431,22 +479,100 @@ class Simulator:
             nest = self._nest_fields(outer)
         if not chunked and self.wim is not None:
             forcing = self._wim_forcing(forcing, wim_gate)
-        tinfo = self.time_info()
+        return forcing, nest, self.time_info_at(t)
+
+    def _wim_diag(self) -> dict:
+        """The WIM's diagnostics for the moorings, held constant between
+        couplings: what a step's diag takes where it has none of its own."""
+        out = {}
+        if self.wim is not None:
+            if self._wim_stress is not None:
+                out["tauwix"], out["tauwiy"] = self._wim_stress
+            if self.fsd_params is None and self._wim_dmax is not None:
+                out["dmax"] = self._wim_dmax
+        return out
+
+    def _advance(self, wim_gate: bool = True, chunked: bool = False) -> None:
+        """One eager step: its inputs (host, timed as "forcing"), the device
+        step, the step counter; violations and the coupler's sums accumulate
+        on the device."""
+        self.timer.tick("forcing")
+        forcing, nest, tinfo = self._step_inputs(0, wim_gate, chunked)
         self.timer.tock("forcing")
         self.timer.tick("device_step")
         self.state, self.diag, viol = self.raw_step_fn(self.state, forcing, tinfo, nest)
         self.last_forcing = forcing  # for output.save_forcing_fields
-        if self.wim is not None:
-            # WIM diagnostics for moorings (held constant between couplings)
-            if self._wim_stress is not None:
-                self.diag.setdefault("tauwix", self._wim_stress[0])
-                self.diag.setdefault("tauwiy", self._wim_stress[1])
-            if self.fsd_params is None and self._wim_dmax is not None:
-                self.diag.setdefault("dmax", self._wim_dmax)
+        for key, v in self._wim_diag().items():
+            self.diag.setdefault(key, v)
         self.pcpt += 1
         if self.coupler is not None:
             # (reference: OASIS put block, fe.cpp:8226-8265)
             self.coupler.accumulate(self.state, self.diag)
+        if self.check_fast:
+            prev = self._pending_viol
+            self._pending_viol = viol if prev is None else torch.maximum(prev, viol)
+        self.timer.tock("device_step")
+
+    # ------------------------------------------------------------------
+    def _extract(self, state, diag, forcing) -> dict:
+        """What a step adds to the running sums: every moorings variable
+        (``Moorings._extract``) and the coupler's sent fields (``__cpl_``
+        + name), as the JAX chunk program's ``extract``."""
+        out = {}
+        if self.moorings is not None:
+            for name in self.moorings.names:
+                d = self.moorings._extract(name, state, diag, forcing)
+                if d:
+                    out.update(d)
+        if self.coupler is not None:
+            from nextsim_tpu_torch.coupling.exchange import SENT_FIELDS
+
+            for name, (src, field) in SENT_FIELDS.items():
+                arr = getattr(state, field, None) if src == "state" else diag.get(field)
+                if arr is not None:
+                    out["__cpl_" + name] = arr
+        return out
+
+    def _chunk_body(self, state, forcings, flags, nests, wim_diag):
+        """k model steps on the device, the body of the step and chunk
+        programs (JAX ``_build_chunk_fn``'s ``chunk_fn``): (state, the last
+        step's diag, the violation flags maxed over the steps, the sums of
+        ``_extract`` over the steps, the last step's ``_extract``).
+        ``flags[i]`` holds step i's time flags in ``TIME_FLAGS`` order;
+        ``nests`` is None or step i's outer fields (or None) at i;
+        ``wim_diag`` the WIM's diagnostics (``_wim_diag``)."""
+        acc = viol = diag = None
+        for i, forcing in enumerate(forcings):
+            tinfo = {key: flags[i, j] for j, key in enumerate(TIME_FLAGS)}
+            state, diag, vl = self.raw_step_fn(state, forcing, tinfo, None if nests is None else nests[i])
+            for key, v in wim_diag.items():
+                diag.setdefault(key, v)
+            ex = self._extract(state, diag, forcing)
+            acc = ex if acc is None else {key: acc[key] + ex[key] for key in acc}
+            viol = vl if viol is None else torch.maximum(viol, vl)
+        return state, diag, viol, acc, ex
+
+    def _run_program(self, k: int, chunked: bool) -> None:
+        """k steps as one call of the step program: the inputs gathered on
+        the host (timed as "forcing"), one graph replay on the card, then the
+        step counter, the sums into the moorings' and coupler's running
+        means, the violation flags."""
+        self.timer.tick("forcing")
+        steps = [self._step_inputs(i, wim_gate=i == 0 or not chunked, chunked=chunked) for i in range(k)]
+        forcings = [f for f, _, _ in steps]
+        nests = [n for _, n, _ in steps]
+        flags = self.time_flags([ti for _, _, ti in steps])
+        self.timer.tock("forcing")
+        self.timer.tick("device_step")
+        self.state, self.diag, viol, acc, last = self._program(
+            self.state, forcings, flags, None if all(n is None for n in nests) else nests, self._wim_diag())
+        self.last_forcing = forcings[-1]  # for output.save_forcing_fields
+        self.pcpt += k
+        if self.coupler is not None:
+            self.coupler.add_sums({key[6:]: v for key, v in acc.items() if key.startswith("__cpl_")}, k)
+        if self.moorings is not None:
+            self.moorings.add_chunk({key: v for key, v in acc.items() if not key.startswith("__cpl_")},
+                                    {key: v for key, v in last.items() if not key.startswith("__cpl_")}, k)
         if self.check_fast:
             prev = self._pending_viol
             self._pending_viol = viol if prev is None else torch.maximum(prev, viol)
@@ -575,13 +701,12 @@ class Simulator:
             repl["wlbk"] = self._wim_wlbk
         return forcing.replace(**repl) if repl else forcing
 
-    def _next_forcing(self):
-        """The provider's forcing for the coming step; on a device mesh its
-        ext block, cut once for a provider that returns the same bundle
-        again."""
-        forcing = self.forcing_provider(
-            self.current_time + self.dt * dates.DAYS_IN_SEC, self.time_init
-        )
+    def _next_forcing(self, t: Optional[float] = None):
+        """The provider's forcing for the step that starts at ``t`` (default:
+        now); on a device mesh its ext block, cut once for a provider that
+        returns the same bundle again."""
+        t = self.current_time if t is None else t
+        forcing = self.forcing_provider(t + self.dt * dates.DAYS_IN_SEC, self.time_init)
         if self.mesh is None:
             return forcing
         if self._forcing_blocks[0] is not forcing:
@@ -616,30 +741,43 @@ class Simulator:
         return {k: outer[k] for k in keys}
 
     def step(self) -> None:
-        """Advance one model step."""
+        """Advance one model step: one replay of the one-step program on the
+        card (``_build_step_fn``), the eager step where ``eager_reason``
+        says why."""
+        if self.eager_reason is not None:
+            self._log_eager()
+            self.step_eager()
+            return
+        self.timer.tick("step")
+        self._run_program(1, chunked=False)
+        self._after_steps(self.cfg["tpu.check_interval"])
+
+    def step_eager(self) -> None:
+        """One model step through the eager loop (the oracle of ``step``)."""
         self.timer.tick("step")
         self._advance()
-        if self.coupler is not None:
-            self.coupler.maybe_exchange(self.current_time)
-        self.timer.tick("outputs")
-        self._check_outputs()
-        self.timer.tock("outputs")
-        if self.check_fast:
-            # boundary-crossing, not modulo: chunked pcpt strides can step
-            # over a multiple of the interval; finalise() flushes the tail
-            interval = self.cfg["tpu.check_interval"]
-            if interval <= 1 or self.pcpt - self._last_check_pcpt >= interval:
-                self._flush_pending_viol()
-        self._debug_checks()
-        self.timer.tock("step")
+        self._after_steps(self.cfg["tpu.check_interval"], moorings_means=True)
 
     def step_chunk(self, k: Optional[int] = None) -> None:
-        """Advance ``k`` steps (default ``tpu.steps_per_call``), reading the
+        """Advance ``k`` steps (default ``tpu.steps_per_call``) as one replay
+        of the k-step program on the card (``_build_chunk_fn``), reading the
         violation flags back once at the end of the chunk. The WIM exchange
         and the coupler's put/get happen at chunk boundaries only (``run``
         clamps k to divide their cadences): the WIM is consulted before the
         chunk's first step, the coupler after its last, and the coupler's
-        received fields win over the WIM's (see ``_advance``)."""
+        received fields win over the WIM's (see ``_step_inputs``)."""
+        k = self._chunk_k if k is None else k
+        if self.eager_reason is not None:
+            self._log_eager()
+            self.step_chunk_eager(k)
+            return
+        self.timer.tick("step")
+        self._run_program(k, chunked=True)
+        self._after_steps(max(self.cfg["tpu.check_interval"], k))
+
+    def step_chunk_eager(self, k: Optional[int] = None) -> None:
+        """``k`` steps through the eager loop, one ``_advance`` a step (the
+        oracle of ``step_chunk``)."""
         k = self._chunk_k if k is None else k
         self.timer.tick("step")
         for i in range(k):
@@ -648,17 +786,65 @@ class Simulator:
                 self.timer.tick("device_step")
                 self.moorings.update_means(self.state, self.diag, self.last_forcing)
                 self.timer.tock("device_step")
+        self._after_steps(max(self.cfg["tpu.check_interval"], k))
+
+    def _after_steps(self, interval: int, moorings_means: bool = False) -> None:
+        """After a step or a chunk: the coupler's put/get when its window
+        closed, the outputs (the moorings' running means too when
+        ``moorings_means``), the violation read-back once ``interval`` steps
+        have passed (boundary-crossing: chunked pcpt strides can step over a
+        multiple of the interval; finalise() flushes the tail), the debug
+        checks; closes the "step" timer."""
         if self.coupler is not None:
             self.coupler.maybe_exchange(self.current_time)
         self.timer.tick("outputs")
-        self._check_outputs(skip_moorings_means=True)
+        self._check_outputs(skip_moorings_means=not moorings_means)
         self.timer.tock("outputs")
-        if self.check_fast:
-            interval = max(self.cfg["tpu.check_interval"], k)
-            if self.pcpt - self._last_check_pcpt >= interval:
-                self._flush_pending_viol()
+        if self.check_fast and (interval <= 1 or self.pcpt - self._last_check_pcpt >= interval):
+            self._flush_pending_viol()
         self._debug_checks()
         self.timer.tock("step")
+
+    # ------------------------------------------------------------------
+    def _build_step_fn(self) -> Callable:
+        """The one-step program (JAX ``_build_step_fn``): ``(state, forcing,
+        tinfo, nest=None) -> (state, diag, violation flags)``, one graph
+        replay on the card, the eager step on the CPU."""
+
+        def step_fn(state, forcing, tinfo, nest=None):
+            out = self._program(state, [forcing], self.time_flags([tinfo]),
+                                None if nest is None else [nest], {})
+            return out[:3]
+
+        return step_fn
+
+    def _build_chunk_fn(self, k: int) -> Callable:
+        """The k-step program (JAX ``_build_chunk_fn``): ``(state, forcing0,
+        forcings_rest, tinfo0, tinfos_rest, nest0=None, nests_rest=None) ->
+        (state, diag, viol, acc, last_extract)``. ``forcings_rest`` is a
+        ``Forcing`` whose planes stack the k - 1 later steps on a leading
+        axis (or a list of k - 1 bundles), ``tinfos_rest`` a dict of k - 1
+        flags a key, ``nests_rest`` stacks the outer fields likewise. ``acc``
+        sums ``_extract`` over the k steps (moorings variables, the coupler's
+        ``__cpl_`` fields), ``last_extract`` is the last step's. One graph
+        replay on the card, the eager body on the CPU."""
+
+        def rest(tree, n):
+            if tree is None or isinstance(tree, (list, tuple)):
+                return list(tree) if tree is not None else [None] * n
+            if isinstance(tree, dict):
+                return [{key: v[i] for key, v in tree.items()} for i in range(n)]
+            return [tree.replace(**{f: getattr(tree, f)[i] for f in tree.__dataclass_fields__
+                                    if isinstance(getattr(tree, f), torch.Tensor)}) for i in range(n)]
+
+        def chunk_fn(state, forcing0, forcings_rest, tinfo0, tinfos_rest, nest0=None, nests_rest=None):
+            forcings = [forcing0, *rest(forcings_rest, k - 1)]
+            tinfos = [tinfo0, *rest(tinfos_rest, k - 1)]
+            nests = [nest0, *rest(nests_rest, k - 1)]
+            return self._program(state, forcings, self.time_flags(tinfos),
+                                 None if all(n is None for n in nests) else nests, self._wim_diag())
+
+        return chunk_fn
 
     def _debug_checks(self) -> None:
         if self.cfg["debugging.check_velocity_fields"]:
@@ -914,17 +1100,39 @@ class Simulator:
     @property
     def current_time(self) -> float:
         """Model time in days since 1900-01-01 (reference M_current_time)."""
-        return self.time_init + self.pcpt * self.dt * dates.DAYS_IN_SEC
+        return self.time_after(0)
+
+    def time_after(self, i: int) -> float:
+        """``current_time`` after ``i`` more steps, rounded as the step loop
+        rounds it: a chunk's forcing and flags take the times (and so the
+        time-interpolation weights) of the steps it replaces, bit for bit."""
+        return self.time_init + (self.pcpt + i) * self.dt * dates.DAYS_IN_SEC
 
     def time_info(self):
         """Per-step time flags for the thermo tracers (reference:
         fe.cpp:5655-5660 step_in_day; 5999, 6061, 6050 date checks)."""
         return self.time_info_at(self.current_time)
 
+    def time_flags(self, tinfos) -> torch.Tensor:
+        """The time flags of a chunk's k steps (``time_info`` dicts) as one
+        (k, 5) device tensor in ``TIME_FLAGS`` order and the state's dtype,
+        the form the step program takes (the JAX package stacks its traced
+        flags likewise). One tensor per pattern of flags is kept, so a chunk
+        with the flags of an earlier one copies nothing to the device."""
+        key = tuple(float(ti[name]) for ti in tinfos for name in TIME_FLAGS)
+        hit = self._flags.get(key)
+        if hit is None:
+            if len(self._flags) >= 64:
+                self._flags.clear()
+            hit = self._flags[key] = torch.tensor(key, dtype=self.dtype, device=self.device).reshape(
+                len(tinfos), len(TIME_FLAGS))
+        return hit
+
     def time_info_at(self, t: float):
         """time_info evaluated at an arbitrary model time, as host numbers
-        (1.0 or 0.0): thermo_step branches on them in Python, so a step
-        copies nothing to the device for them."""
+        (1.0 or 0.0): an eager thermo_step branches on them in Python, so a
+        step copies nothing to the device for them (``time_flags`` gives a
+        chunk's as one device tensor)."""
         num_steps_in_day = max(1, round(phys.days_in_sec / self.dt))
         step_in_day = 1 + round(num_steps_in_day * (t % 1.0))
         md = dates.datenum_to_string(t, "%m%d")

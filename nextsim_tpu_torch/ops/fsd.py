@@ -347,6 +347,19 @@ def fsd_damage(conc_fsd, damage, p: FSDParams, broke):
     return torch.where(broke, torch.maximum(damage, target), damage)
 
 
+#: device copies of the bins' host arrays, made once: a captured step
+#: (model/captured.py) must not copy from the host
+_BIN_TENSORS = {}
+
+
+def _bin_tensor(arr, dtype, device):
+    key = (id(arr), dtype, str(device))
+    hit = _BIN_TENSORS.get(key)
+    if hit is None or hit[0] is not arr:
+        hit = _BIN_TENSORS[key] = (arr, torch.as_tensor(arr, dtype=dtype, device=device))
+    return hit[1]
+
+
 def dmax_dmean(conc_fsd, p: FSDParams, bins: FSDBins, threshold: float = 0.1):
     """Diagnostics: max floe size (9th decile by default) and mean floe size
     (reference: Dmax/Dmean gridoutput variables)."""
@@ -357,7 +370,7 @@ def dmax_dmean(conc_fsd, p: FSDParams, bins: FSDBins, threshold: float = 0.1):
     # all-false column gives bin 0 (the first of the tied zeros)
     over = cum >= (1.0 - threshold)
     idx = torch.argmax(over.to(torch.uint8), dim=0)
-    centre = torch.as_tensor(bins.centre, dtype=conc_fsd.dtype, device=conc_fsd.device)
+    centre = _bin_tensor(bins.centre, conc_fsd.dtype, conc_fsd.device)
     dmax = centre[idx]
     dmean = (frac * centre[:, None, None]).sum(dim=0)
     has = ctot > 0.0

@@ -24,8 +24,12 @@ the non-finite lane cleanup, the ``T1 <= -1e-6`` clamps and the 1e-12 /
 ``rheology.rdiv`` and integer powers through ``rheology._fast_pow`` (the
 multiplies XLA expands them into).
 
-The per-step time flags (``tinfo``) are host numbers: each selects a branch
-in Python, so a step copies nothing to the device for them.
+The per-step time flags (``tinfo``) are host numbers or 0-dim tensors. A
+host number selects a branch in Python, so an eager step copies nothing to
+the device for it. A tensor (the captured step of ``model/captured.py``,
+whose flags live in a device buffer that each replay refills) computes both
+branches and selects with ``torch.where``, as the JAX package does with its
+traced flags; the two forms give the same bits.
 """
 
 from __future__ import annotations
@@ -700,8 +704,21 @@ def ice_ocean_heatflux(p: ThermoParams, state, forcing, mld, dt):
 # ---------------------------------------------------------------------------
 
 
-def _on(tinfo, key) -> bool:
-    return tinfo is not None and float(tinfo[key]) > 0.5
+def _on(tinfo, key):
+    """The flag ``key`` of ``tinfo``: a bool for a host number (None: off),
+    a 0-dim bool tensor for a tensor."""
+    if tinfo is None:
+        return False
+    v = tinfo[key]
+    return v > 0.5 if isinstance(v, torch.Tensor) else float(v) > 0.5
+
+
+def _pick(flag, a, b):
+    """``a`` where ``flag`` is set, else ``b``: a Python branch on a bool, a
+    ``torch.where`` on a tensor flag."""
+    if isinstance(flag, bool):
+        return a if flag else b
+    return torch.where(flag, a, b)
 
 
 def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams,
@@ -709,8 +726,8 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
     """One full thermodynamics step. Returns (state, diag_dict).
 
     ``tinfo`` carries the per-step time flags is_day_start, is_day_end,
-    is_0915, is_0801 and is_myi_reset_date as host numbers (1.0 or 0.0),
-    computed by the Simulator; None means all off.
+    is_0915, is_0801 and is_myi_reset_date as host numbers (1.0 or 0.0) or
+    0-dim tensors, computed by the Simulator; None means all off.
     """
     p = cfg_params
     mask = grid_arrays["mask"]
@@ -982,30 +999,30 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
     # =====================================================================
     # freeze-day / summer trackers (fe.cpp:5652-5697)
     # =====================================================================
-    vi_tend = zeros() if _on(tinfo, "is_day_start") else state.del_vi_tend
+    vi_tend = _pick(_on(tinfo, "is_day_start"), zeros(), state.del_vi_tend)
     del_vi_tend = vi_tend + del_vi * ddt
     day_end = _on(tinfo, "is_day_end")
-    if day_end:
+    if day_end is not False:
         freezing_day = del_vi_tend > 0.0
         melting_day = del_vi_tend < 0.0
-        freeze_days = torch.where(
+        freeze_days = _pick(day_end, torch.where(
             freezing_day, state.freeze_days + 1.0,
             torch.where(melting_day, 0.0, state.freeze_days),
-        )
+        ), state.freeze_days)
     else:
         freeze_days = state.freeze_days
     use_young_in_reset = p.include_young_ice and p.reset_by_date
     young_in_reset = p.use_young_ice and use_young_in_reset
-    if day_end:
+    if day_end is not False:
         conc_summer_cand = conc + ties.minimum(del_c, 0.0)
         thick_summer_cand = state.thick + ties.minimum(del_vi, 0.0)
         if young_in_reset:
             conc_summer_cand = conc_summer_cand + conc_young
             thick_summer_cand = thick_summer_cand + h_young
-        conc_summer = torch.where(melting_day, ties.clip(conc_summer_cand, 0.0, 1.0),
-                                  state.conc_summer)
-        thick_summer = torch.where(melting_day, ties.maximum(thick_summer_cand, 0.0),
-                                   state.thick_summer)
+        conc_summer = _pick(day_end, torch.where(melting_day, ties.clip(conc_summer_cand, 0.0, 1.0),
+                                                 state.conc_summer), state.conc_summer)
+        thick_summer = _pick(day_end, torch.where(melting_day, ties.maximum(thick_summer_cand, 0.0),
+                                                  state.thick_summer), state.thick_summer)
     else:
         conc_summer, thick_summer = state.conc_summer, state.thick_summer
 
@@ -1156,10 +1173,10 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
     # =====================================================================
     no_ice_tr = (conc < phys.cmin) | (thick < conc * phys.hmin)
 
-    if _on(tinfo, "is_0915"):
-        fyi = zeros()
-    else:
-        fyi = ties.clip(state.fyi_fraction + del_c, 0.0, 1.0)
+    is_0915 = _on(tinfo, "is_0915")
+    fyi = zeros() if is_0915 is True else ties.clip(state.fyi_fraction + del_c, 0.0, 1.0)
+    if isinstance(is_0915, torch.Tensor):
+        fyi = torch.where(is_0915, zeros(), fyi)
 
     w_age = torch.where(old_conc <= 0.0, 0.0, ties.minimum(old_conc / ties.maximum(conc, 1e-15), 1.0))
     age_det = w_age * (state.age_det + dt) + ties.maximum((1.0 - w_age) * dt, 0.0)
@@ -1177,11 +1194,14 @@ def thermo_step(state, forcing, grid_arrays, dt: float, cfg_params: ThermoParams
 
     # Aug 1: reset onset + summer trackers (fe.cpp:6059-6080)
     young_tot = conc_young if young_in_reset else None
-    if _on(tinfo, "is_0801"):
+    aug1 = _on(tinfo, "is_0801")
+    if aug1 is not False:
         ctot_aug = conc + conc_young if p.use_young_ice else conc
-        freeze_onset = torch.where(ctot_aug == 0.0, torch.ones_like(conc), 0.0)
-        conc_summer = ties.clip(conc if young_tot is None else conc + conc_young, 0.0, 1.0)
-        thick_summer = ties.maximum(thick + h_young if young_in_reset else thick, 0.0)
+        freeze_onset = _pick(aug1, torch.where(ctot_aug == 0.0, torch.ones_like(conc), 0.0), freeze_onset)
+        conc_summer = _pick(aug1, ties.clip(conc if young_tot is None else conc + conc_young, 0.0, 1.0),
+                            conc_summer)
+        thick_summer = _pick(aug1, ties.maximum(thick + h_young if young_in_reset else thick, 0.0),
+                             thick_summer)
     freeze_onset = torch.round(freeze_onset)
 
     c_myi_max = conc + conc_young if young_in_reset else conc

@@ -320,6 +320,20 @@ class Moorings:
                     self._accum[key] = self._accum.get(key, 0.0) + a
         self._count = 1 if self.snapshot else self._count + 1
 
+    def add_chunk(self, sums: Dict, last: Dict, n_steps: int):
+        """Fold a chunk of ``n_steps`` steps into the running means: ``sums``
+        holds the sum of ``_extract`` over its steps, ``last`` its last
+        step's values (the step program's ``acc`` and ``last_extract``, as
+        the JAX package's ``step_chunk`` folds them). In snapshot mode the
+        last values replace the running sums."""
+        if self.snapshot:
+            self._accum = dict(last)
+            self._count = 1
+            return
+        for key, a in sums.items():
+            self._accum[key] = self._accum.get(key, 0.0) + a
+        self._count += n_steps
+
     def _computed(self, field: str, state, forcing):
         """Derived diagnostics (reference: D_tsurf/D_sigma fe.cpp:7862-7890;
         wspeed gridoutput.hpp:928; d_crit per the BBM yield criterion,

@@ -582,3 +582,97 @@ def test_wim_step_on_ext_blocks_equals_the_whole_grid(cuda, advopt, dtype_name):
                                                                    for k in ("dfloe", "nfloes", "broken")]:
                 torch.testing.assert_close(lay.owned(o), lay.owned(ext(r)), rtol=0, atol=0,
                                            msg=lambda m: f"block {rank}, step {g}, {name}: {m}")
+
+
+# ---------------------------------------------------------------------------
+# the step and chunk programs: one CUDA graph replay a call
+# ---------------------------------------------------------------------------
+
+def _bench464(**over):
+    from nextsim_tpu_torch.bench import bench_overrides
+
+    return dict(bench_overrides(464), **{"simul.spinup_duration": 0.0, "ideal_simul.constant_wind_u": 20.0},
+                **over)
+
+
+def _equal_states(a, b, what):
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        assert (x is None) == (y is None), (what, f.name)
+        if x is not None:
+            assert x.device.type == "cuda" and torch.equal(x, y), (what, f.name)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64", "bfloat16"])
+@pytest.mark.parametrize("dyn_type", ["bbm", "evp", "mevp"])
+def test_captured_step_and_chunk_equal_the_eager_loop(cuda, dyn_type, dtype_name):
+    """At 464^2 (bench.py's arctic, 120 substeps): ``step`` (the one-step
+    graph) and ``step_chunk(3)`` (the three-step graph), each captured at
+    its first call and replayed at the second, equal ``step_eager`` and
+    ``step_chunk_eager`` bitwise; a replay counts its graph's kernel
+    launches; a state taken before a replay keeps its values."""
+    over = _bench464(**{"setup.dynamics-type": dyn_type, "tpu.dtype": dtype_name})
+    a = Simulator(Config(overrides=over), device="cuda")
+    b = Simulator(Config(overrides=over), device="cuda")
+    per_step = _launches(a, a.dyn.substeps)
+    for i, (k, run_a, run_b) in enumerate([(1, a.step, b.step_eager), (1, a.step, b.step_eager),
+                                           (3, lambda: a.step_chunk(3), lambda: b.step_chunk_eager(3)),
+                                           (3, lambda: a.step_chunk(3), lambda: b.step_chunk_eager(3))]):
+        before, snap = a.state, a.state.vt_u.clone()
+        launches = momentum_cuda.launches
+        run_a()
+        assert momentum_cuda.launches == launches + k * per_step, i
+        run_b()
+        _equal_states(a.state, b.state, f"call {i}")
+        assert torch.equal(before.vt_u, snap), i
+    assert len(a._program.graphs) == 2 and not b._program.graphs
+    stats = a._program.stats
+    assert stats["kernel_launches"] == 3 * per_step and (stats["nodes"] is None or stats["nodes"] > 3 * per_step)
+    assert float(a.state.vt_u.abs().max()) > 0.0 and bool(torch.isfinite(a.state.vt_u).all())
+
+
+def test_captured_thermo_chunk_across_a_day_boundary(cuda):
+    """464^2, thermodynamics on, two 30-step chunks from 21:20: the second
+    (a replay) crosses midnight (the day's end at its 18th step, the next
+    day's start at its 19th), and its time flags reach the graph through its
+    flag buffer; it equals the eager loop bitwise."""
+    over = _bench464(**{"thermo.use_thermo_forcing": True, "ideal_simul.init_SST_limit": 10.0,
+                        "ideal_simul.init_concentration": 0.95, "ideal_simul.init_thickness": 1.5,
+                        "simul.time_init": "2015-10-16 21:20:00", "tpu.steps_per_call": 30})
+    a = Simulator(Config(overrides=over), device="cuda")
+    b = Simulator(Config(overrides=over), device="cuda")
+    for chunk in range(2):
+        flags = a.time_flags([a.time_info_at(a.current_time + i * a.dt / 86400.0) for i in range(30)])
+        a.step_chunk()
+        b.step_chunk_eager()
+        _equal_states(a.state, b.state, f"chunk {chunk}")
+    day_end = flags[:, 1].nonzero().flatten().tolist()
+    day_start = flags[:, 0].nonzero().flatten().tolist()
+    assert day_end == [17] and day_start == [18], (day_end, day_start)
+    assert len(a._program.graphs) == 1 and float(a.state.conc.max()) > 0.5
+
+
+def test_captured_dataset_chunks_refresh_their_forcing(cuda, tmp_path, monkeypatch):
+    """The dataset path (ERA5 + TOPAZ4 + ETOPO, thermo on) over two 3-step
+    chunks whose forcing differs: the second chunk (a replay) equals the
+    eager loop bitwise, so the static buffers took the new forcing."""
+    from nextsim_tpu_torch.grid.grid import Grid
+
+    _write_small_datasets(tmp_path)
+    monkeypatch.setenv("NEXTSIM_DATA_DIR", str(tmp_path))
+    over = dict(THERMO, **{"setup.atmosphere-type": "era5", "setup.ocean-type": "topaz4_rean",
+                           "setup.bathymetry-type": "etopo", "simul.time_init": "2015-10-16 00:00:00",
+                           "simul.spinup_duration": 0.0, "tpu.steps_per_call": 3})
+    grid = Grid.square(nx=40, ny=36, dx=25e3, x0=-500e3, y0=-450e3)
+    a = Simulator(Config(overrides=over), grid=grid, device="cuda")
+    b = Simulator(Config(overrides=over), grid=grid, device="cuda")
+    winds = []
+    for chunk in range(2):
+        a.step_chunk()
+        b.step_chunk_eager()
+        _equal_states(a.state, b.state, f"chunk {chunk}")
+        winds.append(a.last_forcing.wind_u.clone())
+    assert not torch.equal(winds[0], winds[1])
+    assert len(a._program.graphs) == 1

@@ -195,16 +195,33 @@ def test_golden_random_fixture_is_current():
     )
 
 
-def test_step_chunk_equals_steps():
-    over = dict(SLICES["toy_square32"], **{"dynamics.substeps": 20})
-    a = PSimulator(PConfig(overrides=over), device="cpu")
-    b = PSimulator(PConfig(overrides=over), device="cpu")
-    for _ in range(3):
-        a.step()
-    b.step_chunk(3)
-    assert a.pcpt == b.pcpt == 3
-    for f, v in state_to_numpy(a.state).items():
-        np.testing.assert_array_equal(state_to_numpy(b.state)[f], v, err_msg=f)
+def test_step_chunk_equals_steps(tmp_path):
+    """``step_chunk(3)`` (the 3-step program) equals 3 ``step`` calls (the
+    1-step program) and the eager loop, bitwise: on the toy square, and with
+    thermodynamics on across a day boundary (the chunk's steps start at
+    23:53:20, 23:56:40 and 00:00:00) with the moorings' running means."""
+    thermo = dict(SLICES["toy_square32_thermo"], **{
+        "dynamics.substeps": 20, "simul.time_init": "2015-10-16 23:53:20", "moorings.use_moorings": True,
+        "output.exporter_path": str(tmp_path)})
+    for over in (dict(SLICES["toy_square32"], **{"dynamics.substeps": 20}), thermo):
+        a = PSimulator(PConfig(overrides=over), device="cpu")
+        b = PSimulator(PConfig(overrides=over), device="cpu")
+        c = PSimulator(PConfig(overrides=over), device="cpu")
+        for _ in range(3):
+            a.step()
+        b.step_chunk(3)
+        c.step_chunk_eager(3)
+        assert a.pcpt == b.pcpt == c.pcpt == 3
+        for other in (b, c):
+            for f, v in state_to_numpy(a.state).items():
+                np.testing.assert_array_equal(state_to_numpy(other.state)[f], v, err_msg=f)
+        if a.moorings is None:
+            continue
+        assert a.use_thermo and a.moorings._count == b.moorings._count == c.moorings._count == 3
+        assert set(a.moorings._accum) == set(b.moorings._accum) == set(c.moorings._accum)
+        for key, v in a.moorings._accum.items():
+            np.testing.assert_array_equal(b.moorings._accum[key].numpy(), v.numpy(), err_msg=key)
+            np.testing.assert_array_equal(c.moorings._accum[key].numpy(), v.numpy(), err_msg=key)
 
 
 def test_simulator_takes_a_grid():
@@ -720,7 +737,7 @@ SLICE_MODULES = [
     "nextsim_tpu_torch.tools.plot_fields", "nextsim_tpu_torch.tools.nan_bisect",
     "nextsim_tpu_torch.parallel", "nextsim_tpu_torch.parallel.distributed",
     "nextsim_tpu_torch.parallel.halo", "nextsim_tpu_torch.parallel.multihost",
-    "nextsim_tpu_torch.parallel.seam",
+    "nextsim_tpu_torch.parallel.seam", "nextsim_tpu_torch.model.captured", "nextsim_tpu_torch.bench",
 ]
 
 
