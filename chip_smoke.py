@@ -95,12 +95,25 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    subprocess, and its summary line;
 19. the ensemble at full width: ``BatchedEnsemble`` on phase 11's
    configuration and files, 4 members (the control and 3 perturbed) for 12
-   steps; every member finite with zero violations, 4 x the plan's launches
-   a step, spread in conc, sst and vt_u, member 0 on the provider's forcing,
-   a statistics moorings record, and a checkpoint at step 6 read back into
-   the same ensemble whose second pass equals the first bitwise; ms/step of
-   the ensemble and a member beside phase 11's, and one step under
-   torch.profiler (launches, device busy, idle share);
+   steps, each step twice from the same state, in turns: the batched step
+   (one replay of a captured CUDA graph; the substep kernel launched once
+   for all members, the plan's launches a step) and the member loop
+   ``step_members`` (eager, 4 x the plan's launches a step), every member
+   equal bitwise after every step; every member finite with zero
+   violations (the batched step's (4, checks) flags), spread in conc, sst
+   and vt_u, member 0 on the provider's forcing, statistics moorings
+   records, and a checkpoint at step 6 read back into the same ensemble
+   whose second (batched) pass equals the first bitwise; ms/step of each
+   (median, min, max) beside phase 11's, the graph's nodes, capture and
+   instantiation seconds and pool, and the member loop's step under
+   torch.profiler (launches, device busy, idle share; the batched step's
+   replay is profiled at the end of phase 29);
+19b. the batched launch on phase 19's 608^2 x 4 state: against the 4
+   single-member launches and the plain loop on the card, bitwise, for
+   bbm, evp and mevp in float32, float64 and bfloat16 over 11 substeps; a
+   120-substep bbm float32 loop batched beside 4 single launches by CUDA
+   events, in turns, and the plain loop on the batch, with its bound (4 x
+   the single one);
 20. at 464^2 thermo on, 3 members for 3 steps: batched member 0 equals a
    Simulator and member 2 a Simulator with ensemble_member=2, bitwise;
 21. ``python -m nextsim_tpu_torch.ensemble.run_ensemble --device cuda`` with
@@ -115,7 +128,7 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    ``momentum_cuda.SubstepLoop`` (the kernel forward, a checkpointed
    recompute with the plain body backward) against straight autograd
    through the plain loop on the card in float32 and float64, a
-   directional finite difference in float64 and a 3-step rollout; ms,
+   directional finite difference in float64 and a 2-step rollout; ms,
    kernel launches, device busy and peak memory of each;
 24. a device mesh: 4 ranks of a 2x2 mesh spawned on the card (gloo with the
    strips staged through pinned host memory when they share one card, NCCL
@@ -138,9 +151,11 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    step-20 state against the plain loop; ms/step between exchanges, seconds
    a WIM exchange, the WIM's ring bytes and ``Seam.seconds`` by rank;
 26. the member mesh: phase 19's configuration, 4 members on the layouts (4,)
-   and (2, 1, 2) (4 ranks each), 3 steps, every member bitwise equal to
-   phase 19's single-device ensemble after 3 steps; the (4,) checkpoint read
-   by phase 19's ensemble equals it, and one more step stays equal;
+   (a batched step of one member a rank) and (2, 1, 2) (the member loop on
+   1x2 blocks a group) (4 ranks each), 3 steps, every member bitwise equal
+   to phase 19's single-device ensemble after 3 steps; the (4,) checkpoint
+   read by phase 19's ensemble equals it, and one more (batched) step stays
+   equal;
 27. a mesh gradient: phase 23's thermo-off d(mean KE)/d(wind_u) through
    ``raw_step_fn`` on a 2x2 mesh, H = 6, float32 and float64, each rank's
    loss on its own nodes and ``Seam.fold`` for the global gradient, against
@@ -166,15 +181,19 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    ``step_chunk_eager`` and ``step_chunk`` (one graph replay) in turns,
    every result bitwise equal; ms/step of each, the device-busy share of
    each under torch.profiler, the graph's nodes, capture and instantiation
-   seconds and pool; then ``python -m nextsim_tpu_torch.bench`` as a
-   subprocess and its line.
+   seconds and pool; phase 19's batched ensemble step (a graph replay) under
+   torch.profiler, the last profile of the run (device busy and idle
+   share); then ``python -m nextsim_tpu_torch.bench`` as a subprocess and
+   its line.
 
 The line before the last is the JSON record of the kernel (its launches
 summed over the paths of phases 5 (the eager first call and the replay,
-``main_graph``), 8, 11, 14, 17, 19, 22, 23, 24, 25, 26, 27 and 28 (the mesh
+``main_graph``), 8, 11, 14, 17, 19 (the batched steps ``ensemble_batched``,
+the member loop ``ensemble``), 22, 23, 24, 25, 26, 27 and 28 (the mesh
 paths summed over their ranks), each counted from zero, none of them zero;
 ``bf16_bitwise`` by rheology and the bfloat16 loop's times; phase 29's
-numbers under ``captured``); the last line is
+numbers under ``captured``; phase 19's under ``ensemble_608x4`` and phase
+19b's under ``batched_608x4``); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -269,14 +288,16 @@ H100_BF16_OPS_PER_S = 133.8e12  # bfloat16 outside the tensor cores (NVIDIA's H1
 H100_F64_OPS_PER_S = 34e12  # float64 outside the tensor cores (NVIDIA's data sheet, SXM)
 
 
-def kernel_bound_ms(ny, nx, steps, dtype, dyn_type):
-    """The least time an H100 could take for one substep loop: (bound_ms,
-    "bytes" or "operations", bytes_ms, operations_ms). Bytes: every plane
-    the rheology reads once and every state plane it updates written once.
-    Operations: SUBSTEP_OPS on every cell and node, every substep, at the
-    float64 rate for float64 and the float32 rate for float32; in bfloat16,
-    SUBSTEP_SCALAR_OPS at the float32 rate and the rest at the bfloat16 rate
-    (the conversions are not counted)."""
+def kernel_bound_ms(ny, nx, steps, dtype, dyn_type, members=1, shared=()):
+    """The least time an H100 could take for one substep loop of ``members``
+    members: (bound_ms, "bytes" or "operations", bytes_ms, operations_ms).
+    Bytes: every plane the rheology reads once (a plane the members share,
+    named in ``shared``, once for all) and every state plane it updates
+    written once a member. Operations: SUBSTEP_OPS on every cell and node,
+    every substep and member, at the float64 rate for float64 and the
+    float32 rate for float32; in bfloat16, SUBSTEP_SCALAR_OPS at the float32
+    rate and the rest at the bfloat16 rate (the conversions are not
+    counted)."""
     import torch
 
     from nextsim_tpu_torch.ops import momentum_cuda
@@ -285,13 +306,13 @@ def kernel_bound_ms(ny, nx, steps, dtype, dyn_type):
     cells, nodes = ny * nx, (ny + 1) * (nx + 1)
     is_node = lambda n: n.startswith(("vt", "ut")) or n in momentum_cuda._NODE  # noqa: E731
     moved = list(momentum_cuda.tile_planes(dyn_type)) + list(momentum_cuda._STATE_USED[dyn_type])
-    n_bytes = itemsize * sum(nodes if is_node(n) else cells for n in moved)
+    n_bytes = itemsize * sum((nodes if is_node(n) else cells) * (1 if n in shared else members) for n in moved)
     per_cell, per_node = SUBSTEP_OPS[dyn_type]
-    ops = steps * (per_cell * cells + per_node * nodes)
+    ops = members * steps * (per_cell * cells + per_node * nodes)
     bytes_ms = 1e3 * n_bytes / H100_BYTES_PER_S
     if dtype == torch.bfloat16:
         scalar_cell, scalar_node = SUBSTEP_SCALAR_OPS[dyn_type]
-        scalar_ops = steps * (scalar_cell * cells + scalar_node * nodes)
+        scalar_ops = members * steps * (scalar_cell * cells + scalar_node * nodes)
         ops_ms = 1e3 * (scalar_ops / H100_F32_OPS_PER_S + (ops - scalar_ops) / H100_BF16_OPS_PER_S)
     else:
         ops_ms = 1e3 * ops / (H100_F64_OPS_PER_S if dtype == torch.float64 else H100_F32_OPS_PER_S)
@@ -1631,18 +1652,42 @@ ENSEMBLE_MEMBERS = 4  # the control and 3 perturbed members
 ENSEMBLE_STEPS = 12
 
 
+def _ensemble_snapshot(ens):
+    """What a step of ``ens`` changes: (its stack, cloned; the AR(1) carry;
+    the member generators' states; the step count)."""
+    import dataclasses
+
+    return ({f.name: getattr(ens.states, f.name).clone() for f in dataclasses.fields(ens.states)
+             if getattr(ens.states, f.name) is not None},
+            None if ens._ran is None else ens._ran.clone(), [g.get_state() for g in ens.generators], ens.pcpt)
+
+
+def _ensemble_restore(ens, snap) -> None:
+    states, ran, gens, pcpt = snap
+    ens.states = ens.states.replace(**{k: v.clone() for k, v in states.items()})
+    ens._ran = None if ran is None else ran.clone()
+    for g, st in zip(ens.generators, gens):
+        g.set_state(st)
+    ens.pcpt = pcpt
+
+
 def ensemble_run(tmp: Path, smi: str, dataset_ms: float):
     """Phase 19: ``BatchedEnsemble`` on configs/arctic_10km.cfg with ERA5 +
-    TOPAZ4 + ETOPO (the phase-11 files), 4 members for 12 steps, a checkpoint
-    at step 6 resumed into the same object; returns (the ensemble, kernel
-    launches of the 12 steps, every member's state after
-    MESH_ENSEMBLE_STEPS steps as host arrays, for phase 26)."""
+    TOPAZ4 + ETOPO (the phase-11 files), 4 members for 12 steps, every step
+    twice from the same state, in turns: the batched step (one replay of
+    its CUDA graph, the substep kernel launched once for all members) and
+    the member loop ``step_members`` (eager), every member equal bitwise;
+    then a checkpoint at step 6 resumed into the same object. Returns (the
+    ensemble, the kernel's launches in the batched steps and in the member
+    loop's, every member's state after MESH_ENSEMBLE_STEPS steps as host
+    arrays for phase 26, the numbers for the JSON record)."""
     import dataclasses
 
     import torch
 
-    from nextsim_tpu_torch import Config
+    from nextsim_tpu_torch import Config, state_to_numpy
     from nextsim_tpu_torch.ensemble.batched import BatchedEnsemble
+    from nextsim_tpu_torch.model import checks
     from nextsim_tpu_torch.ops import momentum_cuda
     from scipy.io import netcdf_file
 
@@ -1654,32 +1699,67 @@ def ensemble_run(tmp: Path, smi: str, dataset_ms: float):
     t0 = time.perf_counter()
     ens = BatchedEnsemble(cfg, ENSEMBLE_MEMBERS, device="cuda")
     init_s = time.perf_counter() - t0
+    if ens.loop_reason is not None:
+        raise AssertionError(f"ensemble: the configuration keeps the member loop: {ens.loop_reason}")
     half = ENSEMBLE_STEPS // 2
+    ny, nx = ens.sim.grid.shape
+    substeps = ens.sim.dyn.substeps
+    plan_of = (ens.sim.dtype, ens.sim.dyn.dynamics_type)
+    per_batched = momentum_cuda.launches_for(substeps, ny, nx, *plan_of, members=ENSEMBLE_MEMBERS)
+    per_loop = momentum_cuda.launches_for(substeps, ny, nx, *plan_of)
+    counts = {"batched": 0, "loop": 0}
+    ms = {"batched": [], "loop": []}
 
-    def steps(n):
-        ms = []
-        for _ in range(n):
-            a = time.perf_counter()
-            ens.step()
-            sync()
-            ms.append(1e3 * (time.perf_counter() - a))
-        return ms
+    def loop_step():
+        # the member loop from the batched step's start: the statistics
+        # record of the step is the batched step's to write
+        moor, ens.sim.moorings = ens.sim.moorings, None
+        try:
+            ens.step_members()
+        finally:
+            ens.sim.moorings = moor
 
-    from nextsim_tpu_torch import state_to_numpy
+    def timed(mode):
+        momentum_cuda.launches = 0
+        a = time.perf_counter()
+        (ens.step if mode == "batched" else loop_step)()
+        sync()
+        ms[mode].append(1e3 * (time.perf_counter() - a))
+        counts[mode] += momentum_cuda.launches
 
-    momentum_cuda.launches = 0
-    step_ms = steps(MESH_ENSEMBLE_STEPS)
-    early = [state_to_numpy(ens.member_state(m)) for m in range(ENSEMBLE_MEMBERS)]
-    step_ms += steps(half - MESH_ENSEMBLE_STEPS)
-    ens.write_restart("half")
-    step_ms += steps(ENSEMBLE_STEPS - half)
-    launches = momentum_cuda.launches
-    per_loop = momentum_cuda.launches_for(ens.sim.dyn.substeps, *ens.sim.grid.shape)
-    if launches != ENSEMBLE_MEMBERS * per_loop * ENSEMBLE_STEPS:
-        raise AssertionError(f"ensemble: {launches} kernel launches, expected "
-                             f"{ENSEMBLE_MEMBERS} x {per_loop} x {ENSEMBLE_STEPS}")
+    def both(i):
+        start = _ensemble_snapshot(ens)
+        order = ("batched", "loop") if i % 2 == 0 else ("loop", "batched")
+        timed(order[0])
+        first = _ensemble_snapshot(ens)
+        _ensemble_restore(ens, start)
+        timed(order[1])
+        second = _ensemble_snapshot(ens)
+        differ = [k for k, v in first[0].items() if not torch.equal(v, second[0][k])]
+        if differ or not torch.equal(first[1], second[1]) or first[3] != second[3]:
+            raise AssertionError(f"ensemble step {i}: the batched step and the member loop differ in "
+                                 f"{differ or 'the AR(1) carry'}")
+
+    early = None
+    for i in range(ENSEMBLE_STEPS):
+        both(i)
+        if ens.pcpt == MESH_ENSEMBLE_STEPS:
+            early = [state_to_numpy(ens.member_state(m)) for m in range(ENSEMBLE_MEMBERS)]
+        if ens.pcpt == half:
+            ens.write_restart("half")
+    if counts["batched"] != per_batched * ENSEMBLE_STEPS or \
+            counts["loop"] != ENSEMBLE_MEMBERS * per_loop * ENSEMBLE_STEPS:
+        raise AssertionError(f"ensemble: {counts} kernel launches, expected {per_batched} x {ENSEMBLE_STEPS} "
+                             f"batched and {ENSEMBLE_MEMBERS} x {per_loop} x {ENSEMBLE_STEPS} in the loop")
+    graph = ens._program.stats
+    if len(ens._program.graphs) != 1 or graph["kernel_launches"] != per_batched:
+        raise AssertionError(f"ensemble: {len(ens._program.graphs)} graphs, {graph}")
     for k in range(ENSEMBLE_MEMBERS):
         _finite_state(ens.member_state(k), f"ensemble member {k}")
+    n_checks = len(checks.CELL_BOUNDS + (checks.YOUNG_BOUNDS if ens.sim.dyn.use_young_ice else [])) + 1
+    if ens.violations is None or tuple(ens.violations.shape) != (ENSEMBLE_MEMBERS, n_checks) or \
+            bool(ens.violations.any()):
+        raise AssertionError(f"ensemble: the batched step's violation flags {ens.violations}")
     spread = ens.spread(("conc", "sst", "vt_u"))
     if min(spread.values()) <= 0.0:
         raise AssertionError(f"ensemble: no spread {spread}")
@@ -1693,14 +1773,15 @@ def ensemble_run(tmp: Path, smi: str, dataset_ms: float):
             raise AssertionError(f"ensemble moorings: {n_rec} records, variables {sorted(nc.variables)}")
 
     # the checkpoint of step 6, read back into the same object: the second
-    # pass equals the first bitwise, the noise stream included
+    # pass (batched) equals the first bitwise, the noise stream included
     first = {f.name: getattr(ens.states, f.name).clone() for f in dataclasses.fields(ens.states)
              if getattr(ens.states, f.name) is not None}
     ran = ens._ran.clone()
     ens.read_restart("half")
     if ens.pcpt != half:
         raise AssertionError(f"ensemble restart: pcpt {ens.pcpt}, not {half}")
-    steps(ENSEMBLE_STEPS - half)
+    for _ in range(ENSEMBLE_STEPS - half):
+        ens.step()
     differ = [k for k, v in first.items() if not torch.equal(v, getattr(ens.states, k))]
     if differ or not torch.equal(ran, ens._ran):
         raise AssertionError(f"ensemble restart: the resumed pass differs in {differ or 'the AR(1) carry'}")
@@ -1717,19 +1798,135 @@ def ensemble_run(tmp: Path, smi: str, dataset_ms: float):
     if min(dtair) <= 0.0:
         raise AssertionError(f"ensemble: a perturbed member has the control's air temperature {dtair}")
 
-    wall, busy, n_launch = profiled(ens.step)
-    med = float(np.median(step_ms[1:]))
-    ny, nx = ens.sim.grid.shape
+    # the member loop under torch.profiler (eager; the batched step's graph
+    # is profiled in phase 29, after every profile of eager code)
+    wall, busy, n_launch = profiled(loop_step)
+    stat = {mode: (float(np.median(v[1:])), min(v[1:]), max(v[1:])) for mode, v in ms.items()}
+    rec = {"ms_batched": stat["batched"], "ms_loop": stat["loop"], "first_ms": {m: v[0] for m, v in ms.items()},
+           "launches_a_step": {"batched": per_batched, "loop": ENSEMBLE_MEMBERS * per_loop},
+           "loop_busy_ms": busy, "loop_busy_share": busy / stat["loop"][0], "nodes": graph["nodes"],
+           "capture_s": graph["capture_s"], "instantiate_s": graph["instantiate_s"],
+           "pool_bytes": graph["pool_bytes"]}
+    fmt = lambda v: f"{v[0]:.2f} ms/step (min {v[1]:.2f}, max {v[2]:.2f})"  # noqa: E731
     phase("ensemble", f"BatchedEnsemble on arctic_10km.cfg {ny}x{nx}, ERA5 + TOPAZ4 + ETOPO, thermo on, "
-          f"{ENSEMBLE_MEMBERS} members x {ENSEMBLE_STEPS} steps: init {init_s:.1f} s, first step {step_ms[0]:.0f} ms "
-          f"(the readers' first call), then {med:.2f} ms/step ({med / ENSEMBLE_MEMBERS:.2f} ms/step a member; "
-          f"min {min(step_ms[1:]):.2f}, max {max(step_ms[1:]):.2f}) against phase 11's {dataset_ms:.2f} ms/step "
-          f"of one Simulator; {launches} kernel launches ({per_loop} a member and step); zero violations; "
-          f"spread {json.dumps({k: round(v, 6) for k, v in spread.items()})}; perturbed members' max |dtair| "
+          f"{ENSEMBLE_MEMBERS} members x {ENSEMBLE_STEPS} steps, each step twice from one state in turns: "
+          f"init {init_s:.1f} s; first step batched {ms['batched'][0]:.0f} ms (the readers' first call when it "
+          f"ran first, and the capture), loop {ms['loop'][0]:.0f} ms; then the batched step (one CUDA graph "
+          f"replay) {fmt(stat['batched'])}, the member loop {fmt(stat['loop'])}, against phase 11's "
+          f"{dataset_ms:.2f} ms/step of one Simulator; every member equal bitwise after every step; "
+          f"substep-kernel launches {counts['batched']} batched ({per_batched} a step for {ENSEMBLE_MEMBERS} "
+          f"members), {counts['loop']} in the loop ({per_loop} a member and step); the graph: {graph['nodes']} "
+          f"nodes, capture {graph['capture_s']:.2f} s, instantiation {graph['instantiate_s']:.2f} s, pool "
+          f"{graph['pool_bytes'] / 2**20:.1f} MiB; zero violations (flags {tuple(ens.violations.shape)}); spread "
+          f"{json.dumps({k: round(v, 6) for k, v in spread.items()})}; perturbed members' max |dtair| "
           f"{', '.join(f'{d:.3f}' for d in dtair)} K; {n_rec} statistics records; restart at step {half} resumed "
-          f"bitwise; one step under torch.profiler: {n_launch} launches, device busy {busy:.2f} ms, idle share "
-          f"{1.0 - busy / med:.3f} of the unprofiled step ({1e3 * wall:.1f} ms profiled wall); {smi}")
-    return ens, launches, early
+          f"bitwise through the batched step; the member loop's step under torch.profiler: {n_launch} launches, "
+          f"device busy {busy:.2f} ms, idle share {1.0 - busy / stat['loop'][0]:.3f} of the unprofiled step "
+          f"({1e3 * wall:.1f} ms profiled wall); {smi}")
+    if early is None:
+        raise AssertionError("ensemble: no state after MESH_ENSEMBLE_STEPS steps")
+    return ens, counts["batched"], counts["loop"], early, rec
+
+
+BATCHED_KERNEL_STEPS = 11  # no multiple of the plan's k: a remainder launch
+
+
+def batched_kernel_phase(ens, smi: str) -> dict:
+    """Phase 19b: the substep kernel's batched launch on phase 19's 608^2 x
+    4 state (the member-minor stack and the stacked forcing, as the batched
+    step hands them on): against the 4 single-member launches and the plain
+    loop on the card, bitwise, for bbm, evp and mevp in float32, float64
+    and bfloat16 over BATCHED_KERNEL_STEPS substeps; then one 120-substep
+    bbm loop in float32, the batched launch beside the 4 single launches by
+    CUDA events, in turns, and the plain loop on the batch, with the
+    bound."""
+    import dataclasses
+
+    import torch
+
+    from nextsim_tpu_torch.core.state import member_minor
+    from nextsim_tpu_torch.ensemble.perturbation import stack_forcings
+    from nextsim_tpu_torch.ops import momentum, momentum_cuda
+
+    sim = ens.sim
+    ny, nx = sim.grid.shape
+    n = ens.n
+    snap = _ensemble_snapshot(ens)  # the forcing's draws advance the noise: put it back after
+    forcing = stack_forcings(ens._member_forcings(ens.current_time + sim.dt / 86400.0))
+    _ensemble_restore(ens, snap)
+
+    def loops(dtype, dyn_type):
+        """(batched consts, carry, params; per member (consts, carry))"""
+        p = dataclasses.replace(sim.dyn, dynamics_type=dyn_type)
+        states = _cast_tree(member_minor(ens.states), dtype)
+        f = _cast_tree(forcing, dtype)
+        ga = {k: v.to(dtype) if isinstance(v, torch.Tensor) and v.is_floating_point() else v
+              for k, v in sim.grid_arrays.items()}
+        ga["cohesion"] = sim.c_fix + sim.c_alea * states.random_number
+        consts, carry = momentum.substep_setup(states, f, ga, sim.dt, p)
+        singles = []
+        for m in range(n):
+            pick = lambda x: x[m] if isinstance(x, torch.Tensor) and x.ndim == 3 else x  # noqa: E731
+            c = type(consts)(**{k: pick(v) for k, v in vars(consts).items()})
+            singles.append((c, tuple(x[m].contiguous() for x in carry)))
+        return consts, carry, p, singles
+
+    def call(fn, consts, carry, steps, p, **kw):
+        return fn(consts, carry, steps, sim.dt / p.substeps, sim.dt, sim.grid.dx, p.dynamics_type, p, **kw)
+
+    bitwise = {}
+    for dtype_name, dtype in (("float32", torch.float32), ("float64", torch.float64), ("bfloat16", torch.bfloat16)):
+        for dyn_type in ("bbm", "evp", "mevp"):
+            consts, carry, p, singles = loops(dtype, dyn_type)
+            launches = momentum_cuda.launches
+            out = call(momentum_cuda.substep_loop, consts, carry, BATCHED_KERNEL_STEPS, p)
+            made = momentum_cuda.launches - launches
+            if made != momentum_cuda.launches_for(BATCHED_KERNEL_STEPS, ny, nx, dtype, dyn_type, members=n):
+                raise AssertionError(f"batched kernel {dtype_name} {dyn_type}: {made} launches")
+            plain = call(momentum_cuda.substep_loop_reference, consts, carry, BATCHED_KERNEL_STEPS, p)
+            same = True
+            for m, (c, cr) in enumerate(singles):
+                one = call(momentum_cuda.substep_loop, c, cr, BATCHED_KERNEL_STEPS, p)
+                for name, o, pl, r in zip(momentum_cuda._STATE, out, plain, one):
+                    if not bool(torch.isfinite(o).all()):
+                        raise AssertionError(f"batched kernel {dtype_name} {dyn_type}: {name} not finite")
+                    same &= torch.equal(o[m], r) and torch.equal(o[m], pl[m])
+            bitwise[f"{dyn_type} {dtype_name}"] = same
+            momentum_cuda.launches = launches  # comparisons are no path's launches
+    if not all(bitwise.values()):
+        raise AssertionError(f"batched kernel: not bitwise {bitwise}")
+
+    consts, carry, p, singles = loops(torch.float32, "bbm")
+    shared = tuple(k for k, v in vars(consts).items() if isinstance(v, torch.Tensor) and v.ndim == 2)
+    steps = p.substeps
+    launches = momentum_cuda.launches
+    batched = lambda: call(momentum_cuda.substep_loop, consts, carry, steps, p)  # noqa: E731
+    each = lambda: [call(momentum_cuda.substep_loop, c, cr, steps, p) for c, cr in singles]  # noqa: E731
+    t_b, t_s = [], []
+    for fn, into in ((batched, t_b), (each, t_s), (each, t_s), (batched, t_b)):
+        into.append(event_ms(fn))
+    plain_ms = event_ms(lambda: call(momentum_cuda.substep_loop_reference, consts, carry, steps, p), reps=1)
+    momentum_cuda.launches = launches
+    bound_ms, bound_by, bytes_ms, ops_ms = kernel_bound_ms(ny, nx, steps, torch.float32, "bbm", members=n,
+                                                           shared=shared)
+    single_bound = kernel_bound_ms(ny, nx, steps, torch.float32, "bbm")[0]
+    pl_b = momentum_cuda.launch_plan(ny, nx, steps, torch.float32, "bbm", members=n)
+    pl_1 = momentum_cuda.launch_plan(ny, nx, steps, torch.float32, "bbm")
+    rec = {"bitwise": bitwise, "ms_batched": min(t_b), "ms_singles": min(t_s), "plain_ms": plain_ms,
+           "bound_ms": bound_ms,
+           "bound_by": bound_by, "single_bound_ms": single_bound, "launches_batched": len(pl_b.launches),
+           "launches_singles": n * len(pl_1.launches), "shared_planes": len(shared)}
+    phase("batched kernel", f"{ny}x{nx} x {n} members (phase 19's state): one batched launch sequence equals the "
+          f"{n} single-member loops and the plain loop bitwise for bbm, evp and mevp in float32, float64 and "
+          f"bfloat16 over {BATCHED_KERNEL_STEPS} substeps; {len(shared)} of the loop's planes shared (stride 0): "
+          f"{', '.join(shared)}. 120-substep bbm float32: batched {t_b} ms in {len(pl_b.launches)} launches "
+          f"(tile {pl_b.tile_h} x {pl_b.tile_w}, k {pl_b.k}, {pl_b.blocks_y * pl_b.blocks_x * n} blocks), "
+          f"{n} single launches {t_s} ms in {n * len(pl_1.launches)} (order batched, singles, singles, batched), "
+          f"the plain loop on the batch {plain_ms:.1f} ms; "
+          f"bound {bound_ms:.4f} ms by {bound_by} (bytes {bytes_ms:.4f}, operations {ops_ms:.4f}; {n} x the "
+          f"single {single_bound:.4f}): the batched launch reaches {100 * bound_ms / min(t_b):.1f}% of it, the "
+          f"singles {100 * bound_ms / min(t_s):.1f}%; {smi}")
+    return rec
 
 
 def ensemble_members_vs_simulators(smi: str) -> None:
@@ -1907,7 +2104,7 @@ def validation_run(tmp: Path, smi: str, ens) -> int:
 # step (no spin-up ramp): a moving, stressed state after one forward step
 GRAD = dict(BENCH, **{"simul.spinup_duration": 0.0})
 GRAD_THERMO = dict(BENCH_THERMO, **{"simul.spinup_duration": 0.0})
-GRAD_ROLLOUT = 3  # steps of the rollout (a variational window)
+GRAD_ROLLOUT = 2  # steps of the rollout (a variational window; 3 until the batched ensemble phases came)
 # SubstepLoop against straight autograd: float32 in the relative L2 norm (the
 # per-segment sums associate the planes' gradients otherwise; measured 1.9e-7
 # on an H100, and the kernel may part from the plain loop on the BBM failure
@@ -2541,9 +2738,10 @@ def mesh_ensemble_phase(tmp: Path, smi: str, ens, early):
     n_one = momentum_cuda.launches
     same(world / "m4_next.npz", [state_to_numpy(ens.member_state(m)) for m in range(ens.n)], "one more step")
     torch.cuda.empty_cache()
-    per_loop = momentum_cuda.launches_for(ens.sim.dyn.substeps, *ens.sim.grid.shape)
-    if n_one != ens.n * per_loop:
-        raise AssertionError(f"mesh ensemble: the single device's step launched {n_one}, not {ens.n * per_loop}")
+    per_step = momentum_cuda.launches_for(ens.sim.dyn.substeps, *ens.sim.grid.shape, ens.sim.dtype,
+                                          ens.sim.dyn.dynamics_type, members=ens.n)
+    if n_one != per_step:
+        raise AssertionError(f"mesh ensemble: the single device's batched step launched {n_one}, not {per_step}")
 
     def of(name):
         return [r for r in recs if r["name"] == name]
@@ -2946,6 +3144,21 @@ def captured_vs_eager(label: str, sim, smi: str, k: int = 30) -> dict:
     return results
 
 
+def ensemble_profile(ens, rec: dict, smi: str) -> dict:
+    """Phase 29's end: one batched ensemble step (a replay of phase 19's
+    graph) under torch.profiler, the card's own entries: device busy, launches
+    and the busy share of phase 19's median batched step."""
+    wall, busy, n_launch = profiled(ens.step, host_events=False)
+    share = busy / rec["ms_batched"][0]
+    ny, nx = ens.sim.grid.shape
+    phase("captured", f"phase 19's batched ensemble step ({ny}x{nx} x {ens.n} members, one graph replay) under "
+          f"torch.profiler: device busy {busy:.2f} ms, {n_launch} kernels, busy share {100 * share:.1f}% "
+          f"(idle {100 * (1 - share):.1f}%) of phase 19's median {rec['ms_batched'][0]:.2f} ms/step "
+          f"({1e3 * wall:.1f} ms profiled wall); the member loop's step was busy {rec['loop_busy_ms']:.2f} ms "
+          f"of {rec['ms_loop'][0]:.2f}; {smi}")
+    return {"batched_busy_ms": busy, "batched_busy_share": share, "batched_kernels": n_launch}
+
+
 def bench_subprocess(smi: str) -> dict:
     """``python -m nextsim_tpu_torch.bench`` as a subprocess: its one JSON
     line."""
@@ -3193,9 +3406,12 @@ def main() -> int:
         nested_card_vs_cpu(tmp, smi)
         standalone_wim(tmp, smi)
 
-        # 19-22. ensembles on the phase-11 files, the driver, validation
+        # 19-22. ensembles on the phase-11 files (19b: the batched launch on
+        # phase 19's state), run_ensemble, validation
         with data_dir(tmp / "data"):
-            ens, path_launches["ensemble"], early = ensemble_run(tmp, smi, dataset_ms)
+            ens, path_launches["ensemble_batched"], path_launches["ensemble"], early, ens_rec = ensemble_run(
+                tmp, smi, dataset_ms)
+            batched_rec = batched_kernel_phase(ens, smi)
         ensemble_members_vs_simulators(smi)
         ensemble_driver(tmp, smi)
         path_launches["validation"] = validation_run(tmp, smi, ens)
@@ -3210,7 +3426,6 @@ def main() -> int:
         with data_dir(tmp / "data"):
             path_launches["mesh_waves"], mesh_wave_err = mesh_waves_phase(tmp, smi)
             path_launches["mesh_ensemble"] = mesh_ensemble_phase(tmp, smi, ens, early)
-        del ens
         path_launches["mesh_gradient"] = mesh_gradient_phase(tmp, smi, single_grads)
 
         # 28. the bfloat16 state
@@ -3220,13 +3435,16 @@ def main() -> int:
 
         # 29. the captured chunk against the eager loop: 608^2 on phase 11's
         # Simulator and files, then 464^2 thermo off and on; last, as every
-        # phase that profiles eager code runs before it
+        # phase that profiles eager code runs before it; then the batched
+        # ensemble step's replay under the profiler, the last profile
         with data_dir(tmp / "data"):
             captured = {"608^2 datasets, thermo on": captured_vs_eager(
                 "608^2 arctic_10km.cfg on ERA5 + TOPAZ4 + ETOPO, thermo on", dataset_sim, smi)}
-        del dataset_sim
-    for label, over in (("464^2 thermo off", BENCH), ("464^2 thermo on", BENCH_THERMO)):
-        captured[label] = captured_vs_eager(label, make_sim(over), smi)
+            del dataset_sim
+            for label, over in (("464^2 thermo off", BENCH), ("464^2 thermo on", BENCH_THERMO)):
+                captured[label] = captured_vs_eager(label, make_sim(over), smi)
+            ens_rec.update(ensemble_profile(ens, ens_rec, smi))
+        del ens
     bench = bench_subprocess(smi)
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     if min(path_launches.values()) <= 0:
@@ -3255,6 +3473,8 @@ def main() -> int:
                                                       "capture_s", "instantiate_s", "pool_bytes",
                                                       "replay_launches")}
                      for label, r in captured.items()},
+        "ensemble_608x4": ens_rec,
+        "batched_608x4": batched_rec,
         "bench_ocean_cell_substeps_per_s": bench["value"],
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,16 @@ same field names as ``nextsim_tpu.core.state.State``: cell-centered tracers
 model/model_variable.hpp:91-134).
 
 Both are immutable: a step builds a new ``State`` with ``replace``, as the
-JAX package does. ``state_from_numpy`` / ``state_to_numpy`` move a state
+JAX package does.
+
+A batched ensemble keeps its members on a leading axis at rest (``(N, ny,
+nx)``, ``(N, 3, ny, nx)``: the JAX package's layout, which its checkpoint
+and statistics read). Its step carries the member axis just before the
+plane's two axes instead (``member_minor``: ``(N, ny, nx)``, ``(3, N, ny,
+nx)``, ``(nbins, N, ny, nx)``), so that the operators, written for planes
+with any leading axes, index a component as ``tice[0]`` and stack one as
+``torch.stack([...])`` exactly as for one state; ``member_first`` converts
+back. ``state_from_numpy`` / ``state_to_numpy`` move a state
 across the framework boundary as a dict of numpy arrays. numpy has no
 bfloat16: a bfloat16 plane goes to the host as float32 (exact), and to the
 files the JAX package writes raw as ``|V2`` records (``bf16_records``).
@@ -147,6 +156,25 @@ def _quad_drag_air(cfg) -> float:
         "constant": cfg["dynamics.ASR_quad_drag_coef_air"],
     }
     return table.get(atm, cfg["dynamics.ECMWF_quad_drag_coef_air"])
+
+
+def member_minor(states: State) -> State:
+    """A member-first stack (every field ``(N, ...)``) with the member axis
+    moved just before the plane's two axes, contiguous: a plane stays ``(N,
+    ny, nx)``, a stacked field ``(N, c, ny, nx)`` becomes ``(c, N, ny,
+    nx)``."""
+    return _move_members(states, 0, -3)
+
+
+def member_first(states: State) -> State:
+    """The inverse of ``member_minor``."""
+    return _move_members(states, -3, 0)
+
+
+def _move_members(states: State, src: int, dst: int) -> State:
+    return states.replace(**{f.name: getattr(states, f.name).movedim(src, dst).contiguous()
+                             for f in dataclasses.fields(states)
+                             if getattr(states, f.name) is not None and getattr(states, f.name).ndim > 3})
 
 
 def state_from_numpy(

@@ -89,17 +89,31 @@
 // is upcast for a launch: a carry of float32 across k substeps would
 // compute another loop than the plain one.
 //
+// Members (the batched ensemble, the counterpart of jax.vmap over the
+// Pallas call): one launch advances plan->members states, blockIdx.z the
+// member, the tiles of every member in one grid. Plane q of member m starts
+// member_stride[q] values after member m - 1's: the plane's size for a plane
+// of its own (every state plane, and what the member's state or forcing
+// sets), 0 for a plane that all members share (the grid's, and those of a
+// forcing field that no member perturbs), so nothing is copied N times.
+// Inside a member the arithmetic is the same, so member m of a batched
+// launch equals a launch on member m alone bitwise. A launch of one member
+// runs a build of the kernel without the member offsets (MEMBERS = false):
+// their address arithmetic made the bfloat16 loop 4-6% slower.
+//
 // Plain C interface, loaded with ctypes by ops/momentum_cuda.py:
 //   int nextsim_substeps_f32(void* const* planes, void* const* state_b,
 //                            const SubstepParams* p, const SubstepPlan* plan,
-//                            const int* launch_steps, void* stream)
+//                            const int* launch_steps,
+//                            const long long* member_stride, void* stream)
 //   int nextsim_substeps_f64(...), int nextsim_substeps_bf16(...)
 // `planes` holds one pointer per Plane (null where the rheology reads none),
 // its first 8 the state slot that launch 0 reads; `state_b` the 8 pointers
-// of the other slot. The function makes plan->n_launches launches on the
-// stream, launch g running launch_steps[g] substeps from slot g % 2 into
-// slot (g + 1) % 2, checks cudaGetLastError() after each, and returns the
-// first error (0 on success).
+// of the other slot, whose member strides are those of the first;
+// `member_stride` one stride per Plane, in values. The function makes
+// plan->n_launches launches on the stream, launch g running launch_steps[g]
+// substeps from slot g % 2 into slot (g + 1) % 2, checks cudaGetLastError()
+// after each, and returns the first error (0 on success).
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -202,7 +216,7 @@ struct SubstepParams {
 struct SubstepPlan {
   int tile_h, tile_w, halo, threads;
   int blocks_y, blocks_x, n_planes, smem_bytes;
-  int n_launches, pad_;
+  int n_launches, members;
 };
 
 namespace {
@@ -242,14 +256,17 @@ template <typename T, int RHEO>
 constexpr int kRecord = sizeof(T) == 2 ? ((plane_slot(RHEO, N_PLANES) + 1) / 2 | 1) * 2
                                        : plane_slot(RHEO, N_PLANES) | 1;
 
+// The planes of member 0 and each plane's member stride (0: shared).
 template <typename T>
 struct Planes {
   const T* p[N_PLANES];
+  long long stride[N_PLANES];
 };
 
 template <typename T>
 struct StateOut {
   T* p[N_STATE];
+  long long stride[N_STATE];
 };
 
 // The scalars, in the plane type's opmath type S: a Python float of the
@@ -468,6 +485,7 @@ __device__ __forceinline__ void node_update(T* pt, int row, const Coef<opmath_t<
 struct Point {
   int gn, gc;  // offsets into a node plane and a cell plane
   bool in_node, in_cell;
+  long long m;  // the member, blockIdx.z
 };
 
 template <typename T, int RHEO, int Q>
@@ -477,7 +495,7 @@ __device__ __forceinline__ void load_plane(const Planes<T>& P, T* rec, const Poi
     // has all its planes' loads in flight at once, none staged in a register
     T* dst = rec + kSlot<RHEO, Q>;
     if (is_node(Q) ? pt.in_node : pt.in_cell) {
-      const T* src = P.p[Q] + (is_node(Q) ? pt.gn : pt.gc);
+      const T* src = P.p[Q] + pt.m * P.stride[Q] + (is_node(Q) ? pt.gn : pt.gc);
       if constexpr (sizeof(T) >= 4) {
         __pipeline_memcpy_async(dst, src, sizeof(T));
       } else {  // cp.async copies no fewer than 4 bytes: a 2-byte value goes through a register
@@ -498,7 +516,7 @@ __device__ __forceinline__ void load_planes(const Planes<T>& P, T* rec, const Po
 template <typename T, int RHEO, int Q>
 __device__ __forceinline__ void store_plane(const StateOut<T>& O, const T* rec, const Point& pt) {
   if constexpr (plane_used(RHEO, Q)) {
-    if (is_node(Q) || pt.in_cell) O.p[Q][is_node(Q) ? pt.gn : pt.gc] = rec[kSlot<RHEO, Q>];
+    if (is_node(Q) || pt.in_cell) O.p[Q][pt.m * O.stride[Q] + (is_node(Q) ? pt.gn : pt.gc)] = rec[kSlot<RHEO, Q>];
   }
 }
 
@@ -511,9 +529,12 @@ __device__ __forceinline__ void store_planes(const StateOut<T>& O, const T* rec,
 __device__ __forceinline__ int imax(int a, int b) { return a > b ? a : b; }
 __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 
-// ksub substeps of the block's tile (see the header). P holds the state slot
-// to read and the coefficients, O the state slot to write.
-template <typename T, int RHEO, int MAX_THREADS>
+// ksub substeps of the block's tile of member blockIdx.z (see the header). P
+// holds the state slot to read and the coefficients, O the state slot to
+// write. MEMBERS = false is the build for one member: its loads and stores
+// take no member offset, so a single state's launch pays nothing for the
+// member axis.
+template <typename T, int RHEO, int MAX_THREADS, bool MEMBERS>
 __global__ void __launch_bounds__(MAX_THREADS)
 blocked_substeps(Planes<T> P, StateOut<T> O, Coef<opmath_t<T>> k, int tile_h, int tile_w, int ksub) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -540,6 +561,7 @@ blocked_substeps(Planes<T> P, StateOut<T> O, Coef<opmath_t<T>> k, int tile_h, in
     pt.in_cell = pt.in_node && gj < k.ny && gi < k.nx;
     pt.gn = gj * (k.nx + 1) + gi;
     pt.gc = gj * k.nx + gi;
+    pt.m = MEMBERS ? blockIdx.z : 0;
     load_planes<T, RHEO>(P, sm + idx * R, pt, std::make_integer_sequence<int, N_PLANES>{});
   }
   __pipeline_commit();
@@ -588,6 +610,7 @@ blocked_substeps(Planes<T> P, StateOut<T> O, Coef<opmath_t<T>> k, int tile_h, in
     pt.in_cell = gj < k.ny && gi < k.nx;
     pt.gn = gj * (k.nx + 1) + gi;
     pt.gc = gj * k.nx + gi;
+    pt.m = MEMBERS ? blockIdx.z : 0;
     store_planes<T, RHEO>(O, sm + ((lr + ksub) * W + lc + ksub) * R, pt,
                           std::make_integer_sequence<int, N_STATE>{});
   }
@@ -612,10 +635,23 @@ int run(const Planes<T>& P0, const StateOut<T>& B, const Coef<opmath_t<T>>& k, c
   if (plan.n_planes != n_planes || plan.tile_h < 1 || plan.tile_w < 1 || plan.halo < 1 ||
       plan.threads < 1 || plan.threads > MAX_THREADS ||
       box * kRecord<T, RHEO> * static_cast<long long>(sizeof(T)) > plan.smem_bytes ||
-      plan.blocks_y * plan.tile_h < k.ny + 1 || plan.blocks_x * plan.tile_w < k.nx + 1) {
+      plan.blocks_y * plan.tile_h < k.ny + 1 || plan.blocks_x * plan.tile_w < k.nx + 1 ||
+      plan.members < 1 || plan.members > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = blocked_substeps<T, RHEO, MAX_THREADS>;
+  // a member stride is 0 (a shared plane) or the plane's size; a state plane
+  // the launches write is every member's own
+  const long long node_size = static_cast<long long>(k.ny + 1) * (k.nx + 1);
+  const long long cell_size = static_cast<long long>(k.ny) * k.nx;
+  for (int q = 0; q < N_PLANES; ++q) {
+    if (!plane_used(RHEO, q)) continue;
+    const long long size = is_node(q) ? node_size : cell_size, st = P0.stride[q];
+    if ((st != 0 && st != size) || (q < N_STATE && plan.members > 1 && st != size)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  auto kernel = plan.members > 1 ? blocked_substeps<T, RHEO, MAX_THREADS, true>
+                                 : blocked_substeps<T, RHEO, MAX_THREADS, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -626,8 +662,9 @@ int run(const Planes<T>& P0, const StateOut<T>& B, const Coef<opmath_t<T>>& k, c
     in[1].p[q] = B.p[q];
     out[0].p[q] = B.p[q];                      // a launch that reads slot 0 writes slot 1
     out[1].p[q] = const_cast<T*>(P0.p[q]);     // and the other way round
+    out[0].stride[q] = out[1].stride[q] = P0.stride[q];
   }
-  const dim3 grid(plan.blocks_x, plan.blocks_y);
+  const dim3 grid(plan.blocks_x, plan.blocks_y, plan.members);
   for (int g = 0; g < plan.n_launches; ++g) {
     const int ksub = launch_steps[g];
     if (ksub < 1 || ksub > plan.halo) return static_cast<int>(cudaErrorInvalidValue);
@@ -641,11 +678,14 @@ int run(const Planes<T>& P0, const StateOut<T>& B, const Coef<opmath_t<T>>& k, c
 
 template <typename T>
 int substeps(void* const* planes, void* const* state_b, const SubstepParams* h, const SubstepPlan* plan,
-             const int* launch_steps, void* stream) {
+             const int* launch_steps, const long long* member_stride, void* stream) {
   // fast_pow writes out the exponents 0..8, the ones the host sends
   if (!h->pow_generic && (h->pow_n < 0 || h->pow_n > 8)) return static_cast<int>(cudaErrorInvalidValue);
   Planes<T> P;
-  for (int q = 0; q < N_PLANES; ++q) P.p[q] = static_cast<const T*>(planes[q]);
+  for (int q = 0; q < N_PLANES; ++q) {
+    P.p[q] = static_cast<const T*>(planes[q]);
+    P.stride[q] = member_stride[q];
+  }
   StateOut<T> B;
   for (int q = 0; q < N_STATE; ++q) B.p[q] = static_cast<T*>(state_b[q]);
   using S = opmath_t<T>;
@@ -690,18 +730,21 @@ int substeps(void* const* planes, void* const* state_b, const SubstepParams* h, 
 }  // namespace
 
 extern "C" int nextsim_substeps_f32(void* const* planes, void* const* state_b, const SubstepParams* p,
-                                    const SubstepPlan* plan, const int* launch_steps, void* stream) {
-  return substeps<float>(planes, state_b, p, plan, launch_steps, stream);
+                                    const SubstepPlan* plan, const int* launch_steps,
+                                    const long long* member_stride, void* stream) {
+  return substeps<float>(planes, state_b, p, plan, launch_steps, member_stride, stream);
 }
 
 extern "C" int nextsim_substeps_f64(void* const* planes, void* const* state_b, const SubstepParams* p,
-                                    const SubstepPlan* plan, const int* launch_steps, void* stream) {
-  return substeps<double>(planes, state_b, p, plan, launch_steps, stream);
+                                    const SubstepPlan* plan, const int* launch_steps,
+                                    const long long* member_stride, void* stream) {
+  return substeps<double>(planes, state_b, p, plan, launch_steps, member_stride, stream);
 }
 
 extern "C" int nextsim_substeps_bf16(void* const* planes, void* const* state_b, const SubstepParams* p,
-                                     const SubstepPlan* plan, const int* launch_steps, void* stream) {
-  return substeps<bf16>(planes, state_b, p, plan, launch_steps, stream);
+                                     const SubstepPlan* plan, const int* launch_steps,
+                                     const long long* member_stride, void* stream) {
+  return substeps<bf16>(planes, state_b, p, plan, launch_steps, member_stride, stream);
 }
 
 extern "C" const char* nextsim_cuda_error_string(int err) {

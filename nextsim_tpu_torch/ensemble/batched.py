@@ -7,17 +7,34 @@ live in one process and on one device: every ``State`` field is stacked on a
 leading member axis, as in the JAX package, so the ensemble mean, spread and
 statistics are reductions over axis 0.
 
-The step itself is not batched. The port's operators are written for 2-D
-planes and the substep kernel takes one state, so each member steps in turn
-through the template Simulator's ``raw_step_fn`` on the views ``x[k]`` of
-the stack, and the result is written back into it. N members cost N model
-steps (and one forcing call); ``python -m nextsim_tpu_torch.ensemble.run_ensemble``
-runs members as separate Simulators instead.
+The step advances all members at once, the JAX package's ``jax.vmap`` of
+``raw_step_fn``: ``Simulator.batched_step_fn`` runs the model step once on
+the stack, with the member axis moved just before the plane's two axes for
+the step (``core.state.member_minor``: a plane ``(N, ny, nx)``, ``tice``
+``(3, N, ny, nx)``; the operators take planes with leading axes, so
+``tice[0]`` and ``torch.stack`` keep their meaning) and moved back after.
+The grid arrays and the forcing fields that no member perturbs stay planes
+and broadcast; the perturbed ones are stacked (``perturbation.
+stack_forcings``). On the card the substep kernel runs every member in the
+same launches (its grid holds N x the tiles), and the whole batched step is
+one replay of a captured CUDA graph (``model/captured.py``), its inputs the
+stack, the stacked forcing and the time flags. On the CPU the same body
+runs eagerly. Member m equals the member stepped alone bitwise.
+
+``step_members`` keeps the member loop: each member in turn through the
+template Simulator's ``raw_step_fn`` on the views ``x[k]`` of the stack. It
+is the batched step's oracle, and ``step`` runs it for the configurations
+of ``Simulator.member_loop_reason`` (a block layout, FSD Roach welding, the
+WIM, the coupler, nesting), logging the reason at the first step.
+``python -m nextsim_tpu_torch.ensemble.run_ensemble`` runs members as
+separate Simulators instead.
 
 Member 0 is the unperturbed control; members 1..N-1 carry independent AR(1)
 spectral forcing perturbations (ensemble/perturbation.py). Member m's stream
 is the one a ``Simulator`` with ``statevector.ensemble_member=m`` and the
-same seed draws, so batched member m equals that Simulator's run.
+same seed draws, so batched member m equals that Simulator's run. The
+draws stay outside the captured step: one ``torch.Generator`` a member,
+called on the host before each step.
 
 A member mesh (``mesh``, the JAX ``('member',)`` and ``('member', 'y',
 'x')`` meshes) is a shape: ``(P,)`` or ``(P, dpy, dpx)``, one
@@ -27,9 +44,11 @@ alone is ``(1, dpy, dpx)``). The ranks form P groups of dpy x dpx
 steps them through its own template Simulator on its blocks, with the
 group's ``seam.Seam`` as its exchanger, and draws their noise from their
 own generators, seeded as everywhere, so member m's draws do not depend on
-the layout. What reads the whole ensemble (``member_state``, ``spread``,
-``mean_state``, the statistics records, the checkpoint) gathers the members'
-global planes from the groups (collective: every rank calls it).
+the layout. A group of one block (``(P,)``) runs the batched step over its
+members; a group of several keeps the member loop. What reads the whole
+ensemble (``member_state``, ``spread``, ``mean_state``, the statistics
+records, the checkpoint) gathers the members' global planes from the groups
+(collective: every rank calls it).
 
 Checkpoints are one ``restart_<name>.npz`` (the JAX package writes an orbax
 directory; the port has no orbax): the stacked state, the AR(1) carry and
@@ -54,7 +73,9 @@ import numpy as np
 import torch
 
 from nextsim_tpu_torch.core.state import State, file_arrays, host_array, host_tensor
-from nextsim_tpu_torch.ensemble.perturbation import EnsembleForcing, PerturbationParams, member_generator
+from nextsim_tpu_torch.ensemble.perturbation import (EnsembleForcing, PerturbationParams, member_generator,
+                                                     stack_forcings)
+from nextsim_tpu_torch.model.captured import Captured
 from nextsim_tpu_torch.utils import dates
 
 
@@ -97,8 +118,9 @@ def member_layout(cfg, n_members: int, mesh) -> Tuple[int, int, int]:
 
 
 class BatchedEnsemble:
-    """N members on a leading axis, stepped one after the other; on a member
-    mesh, each group of ranks steps its share of them (module docstring)."""
+    """N members on a leading axis, advanced by one batched step (one graph
+    replay on the card); on a member mesh, each group of ranks steps its
+    share of them (module docstring)."""
 
     def __init__(self, cfg, n_members: int, seed: int = 11,
                  params: Optional[PerturbationParams] = None, device="cuda", mesh=None):
@@ -145,6 +167,13 @@ class BatchedEnsemble:
         self.generators = [member_generator(seed, m, self.sim.device) for m in self.members if m > 0]
         self._ran = None  # AR(1) carry of this group's perturbed members, (n_p, 4, ny, nx)
         self.pcpt = 0
+        # the batched step: one graph replay a step on the card, or the
+        # member loop where loop_reason says why
+        self.loop_reason = self.sim.member_loop_reason()
+        self._loop_logged = False
+        self._program = Captured(self._batched_body, name="ensemble step program", log=self.sim.log,
+                                 capture=self.loop_reason is None)
+        self.violations = None  # the last batched step's flags, (members of this group, checks)
 
     @property
     def sharded(self) -> bool:
@@ -172,6 +201,36 @@ class BatchedEnsemble:
 
     # -- stepping ---------------------------------------------------------
     def step(self) -> None:
+        """Advance every member one step: the batched step (one graph replay
+        on the card), or ``step_members`` where ``loop_reason`` says why."""
+        if self.loop_reason is not None:
+            if not self._loop_logged:
+                self._loop_logged = True
+                self.sim.log.info(f"BatchedEnsemble steps its members one by one on {self.sim.device}: "
+                                  f"{self.loop_reason}")
+            self.step_members()
+            return
+        sim = self.sim
+        t_next = sim.time_init + (self.pcpt + 1) * sim.dt * dates.DAYS_IN_SEC
+        forcing = stack_forcings(self._member_forcings(t_next))
+        flags = sim.time_flags([sim.time_info_at(sim.time_init + self.pcpt * sim.dt * dates.DAYS_IN_SEC)])
+        self.states, self.violations = self._program(self.states, forcing, flags)
+        self._after_step()
+
+    def _batched_body(self, states, forcing, flags):
+        """The captured program: ``Simulator.batched_step_fn`` on the stack,
+        the time flags ``flags[0]`` in ``TIME_FLAGS`` order: (states',
+        violation flags)."""
+        from nextsim_tpu_torch.model.simulator import TIME_FLAGS
+
+        tinfo = {key: flags[0, j] for j, key in enumerate(TIME_FLAGS)}
+        states, _diag, viol = self.sim.batched_step_fn(states, forcing, tinfo)
+        return states, viol
+
+    def step_members(self) -> None:
+        """Advance every member one step, one after the other, through the
+        template Simulator's ``raw_step_fn`` on the views of the stack (the
+        batched step's oracle)."""
         sim = self.sim
         t_next = sim.time_init + (self.pcpt + 1) * sim.dt * dates.DAYS_IN_SEC
         forcings = self._member_forcings(t_next)
@@ -185,8 +244,11 @@ class BatchedEnsemble:
             out, _diag, _viol = sim.raw_step_fn(member, blocks[id(forcing)], tinfo)
             for name in names:
                 getattr(self.states, name)[k].copy_(getattr(out, name))
+        self._after_step()
+
+    def _after_step(self) -> None:
         self.pcpt += 1
-        if sim.moorings is not None:
+        if self.sim.moorings is not None:
             self._maybe_output_stats()
 
     def run(self, n_steps: int) -> None:

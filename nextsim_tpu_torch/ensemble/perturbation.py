@@ -19,7 +19,9 @@ The draw and the spectrum are separate: ``draw_phases`` takes the phases from
 a member's ``torch.Generator`` (seeded ``seed * 1000003 + member``, one stream
 a member, drawn on the device), and ``spectral_noise`` turns phases into unit
 fields. A member's stream is the same whether it runs alone in a
-``Simulator`` or inside ``BatchedEnsemble``.
+``Simulator`` or inside ``BatchedEnsemble``: each member draws from its own
+generator, on the host's side of the batched step (``stack_forcings`` then
+puts the members' forcings on a member axis).
 """
 
 from __future__ import annotations
@@ -92,6 +94,22 @@ def spectral_noise(phase: torch.Tensor, shape, rh_cells: float) -> torch.Tensor:
     field = torch.fft.irfft2(torch.complex(amp * torch.cos(phase), amp * torch.sin(phase)), s=tuple(shape))
     std = torch.std(field, dim=(-2, -1), correction=0, keepdim=True) + 1e-30
     return field / std
+
+
+def stack_forcings(forcings):
+    """The forcings of a batched ensemble's members as one ``Forcing`` for
+    ``Simulator.batched_step_fn``: a leaf that every member shares (the same
+    tensor, as the perturbed members' forcings pass on the control's
+    unperturbed fields, or None) stays as it is, so it is read once for all
+    members; a leaf that differs is stacked with the member axis before the
+    plane's two axes, ``(N, ny, nx)``."""
+    first = forcings[0]
+    kw = {}
+    for f in dataclasses.fields(first):
+        leaves = [getattr(x, f.name) for x in forcings]
+        if any(leaf is not leaves[0] for leaf in leaves):
+            kw[f.name] = torch.stack(leaves, dim=-3)
+    return first.replace(**kw)
 
 
 class EnsembleForcing:

@@ -44,19 +44,28 @@ YOUNG_BOUNDS: List[Tuple[str, float, float]] = [
 MAX_SPEED = 5.0  # m/s (fe.cpp:14614)
 
 
-def violations(state, use_young_ice: bool = True, owned=None) -> torch.Tensor:
+def violations(state, use_young_ice: bool = True, owned=None, members: bool = False) -> torch.Tensor:
     """An int32 vector of per-check violation flags, on the state's device;
-    ``owned`` crops a rank's block to its owned region."""
+    ``owned`` crops a rank's block to its owned region. ``members``: the
+    state is a batched one, a member axis before the plane's two axes
+    (``core.state.member_minor``), and the flags are (N, checks), each
+    member's own, as the JAX package's ``jax.vmap`` of the step gives
+    them."""
     if owned is not None:
         state = owned(state)
+    if members:
+        def any_(b):  # over every axis but the member axis (-3)
+            return b.movedim(-3, 0).flatten(1).any(dim=1)
+    else:
+        any_ = torch.any
     checks = CELL_BOUNDS + (YOUNG_BOUNDS if use_young_ice else [])
     flags = []
     for name, lo, hi in checks:
         v = getattr(state, name)
-        flags.append(torch.any(torch.isnan(v)) | torch.any(v < lo) | torch.any(v > hi))
+        flags.append(any_(torch.isnan(v)) | any_(v < lo) | any_(v > hi))
     speed = torch.hypot(state.vt_u, state.vt_v)
-    flags.append(torch.any(torch.isnan(speed)) | torch.any(speed > MAX_SPEED))
-    return torch.stack(flags).to(torch.int32)
+    flags.append(any_(torch.isnan(speed)) | any_(speed > MAX_SPEED))
+    return torch.stack(flags, dim=-1).to(torch.int32)
 
 
 def describe(flags, use_young_ice: bool = True) -> List[str]:

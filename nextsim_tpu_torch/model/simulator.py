@@ -38,6 +38,12 @@ FSD Roach welding (``fsd.welding_roach`` reads back twice a call) and a
 perturbed ensemble member (its AR(1) chain draws from a torch.Generator,
 which the JAX package advances inside its chunk program).
 
+``batched_step_fn`` steps N members at once, the JAX package's ``jax.vmap``
+of the step that its batched ensemble jits (``ensemble/batched.py``): the
+step on a member-minor stack, one substep loop of kernel launches for all
+members; ``member_loop_reason`` names the configurations whose members
+still step one by one.
+
 A device mesh (``tpu.mesh_shape = DPYxDPX``) runs one torch.distributed
 rank per block (parallel/seam.py): each rank holds its ext block of the
 state, the grid arrays and every step's forcing, the step exchanges rings
@@ -92,7 +98,7 @@ import torch
 
 from nextsim_tpu_torch.config import Config
 from nextsim_tpu_torch.core import constants as phys
-from nextsim_tpu_torch.core.state import State, state_from_numpy, to_host
+from nextsim_tpu_torch.core.state import State, member_first, member_minor, state_from_numpy, to_host
 from nextsim_tpu_torch.forcing.providers import make_provider
 from nextsim_tpu_torch.grid.grid import Grid
 from nextsim_tpu_torch.model import checks, init_state, params
@@ -348,12 +354,14 @@ class Simulator:
         return state_from_numpy({f: getattr(host, f) for f in host.__dataclass_fields__},
                                 device=self.device, dtype=self.dtype)
 
-    def _step_fn(self, state, forcing, tinfo, nest=None, exchanger=None):
+    def _step_fn(self, state, forcing, tinfo, nest=None, exchanger=None, members=False):
         """One model step on the device: (state', diag, violation flags).
         ``nest`` holds the outer run's fields to relax toward, or is None;
         ``exchanger`` is the rank's ``seam.Seam`` on a device mesh (state,
         forcing and grid arrays are then ext blocks, and the flags count
-        the owned cells), else None."""
+        the owned cells), else None. ``members``: the state is a batched one
+        in the member-minor layout (``batched_step_fn``), and the flags are
+        each member's."""
         ga = dict(self.grid_arrays)
         # cohesion field for this step (reference: calcCohesion, fe.cpp:3909-3914)
         ga["cohesion"] = self.c_fix + self.c_alea * state.random_number
@@ -388,7 +396,8 @@ class Simulator:
         if exchanger is not None:
             state = exchanger.ring_state(state)
             owned = exchanger.owned
-        return state, diag, checks.violations(state, use_young_ice=dyn.use_young_ice, owned=owned)
+        return state, diag, checks.violations(state, use_young_ice=dyn.use_young_ice, owned=owned,
+                                              members=members)
 
     def raw_step_fn(self, state, forcing, tinfo, nest=None):
         """The JAX package's name for the step function: (state', diag,
@@ -399,6 +408,49 @@ class Simulator:
         goes through ``momentum_cuda.SubstepLoop``, and on a mesh the
         rings' through ``seam.RingExchange``."""
         return self._step_fn(state, forcing, tinfo, nest, self.mesh)
+
+    def batched_step_fn(self, states, forcing, tinfo):
+        """N members' steps at once, the JAX package's ``jax.vmap(raw_step_fn,
+        in_axes=(0, 0, None))``: ``states`` a member-first stack (every field
+        ``(N, ...)``), ``forcing`` a ``Forcing`` whose leaves are ``(N, ...)``
+        where the members' differ and the plane itself where they share it
+        (``ensemble.perturbation.stack_forcings``), ``tinfo`` the members'
+        common time flags. Returns (states', diag, violation flags (N,
+        checks)), the states member-first, diag's planes ``(N, ...)``.
+
+        The step runs once on the member-minor layout (``core.state.
+        member_minor``): every operator takes planes with leading axes, the
+        grid arrays and shared forcing planes broadcast, and the substep
+        loop is one loop of kernel launches for all members on the card.
+        Member m's result equals ``raw_step_fn`` on member m alone bitwise.
+        Not for the configurations of ``member_loop_reason`` (ValueError) and
+        not differentiable (the batched substep loop refuses a gradient)."""
+        reason = self.member_loop_reason()
+        if reason is not None:
+            raise ValueError(f"batched_step_fn: this configuration steps its members one by one: {reason}")
+        state, diag, viol = self._step_fn(member_minor(states), forcing, tinfo, members=True)
+        return member_first(state), diag, viol
+
+    def member_loop_reason(self) -> Optional[str]:
+        """Why a batched ensemble of this configuration steps its members
+        one after another (``BatchedEnsemble.step_members``), or None when
+        ``batched_step_fn`` runs them at once. The JAX package vmaps each of
+        these too: they are open items of the port (ROADMAP)."""
+        if self.mesh is not None:
+            return ("a block layout (dpy x dpx > 1) exchanges Seam rings of one member's planes "
+                    "(parallel/seam.py)")
+        fp = self.fsd_params
+        if fp is not None and self.use_thermo and fp.welding_type == "roach":
+            return ("FSD Roach welding reads back twice a call (ops/fsd.py welding_roach: "
+                    "bool(active.any()) and int(ndt.max())), so its loop would run to the largest "
+                    "member's count")
+        if self.wim is not None:
+            return "the waves-in-ice module's state and fields are one member's (nextwim.use_wim)"
+        if self.coupler is not None:
+            return "the coupler's received fields and running sums are one member's (coupler)"
+        if self.nesting is not None:
+            return "the nesting sponge's outer fields are one member's (nesting.use_nesting)"
+        return None
 
     def _fsd_block(self, state, forcing, diag):
         """The floe-size distribution's part of a step: rescale to the new

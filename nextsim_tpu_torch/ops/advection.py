@@ -27,8 +27,8 @@ from nextsim_tpu_torch.core import ties
 
 def face_velocities(u_node, v_node) -> Tuple[torch.Tensor, torch.Tensor]:
     """(u_face (ny, nx+1), v_face (ny+1, nx)) normal velocities."""
-    u_face = 0.5 * (u_node[:-1, :] + u_node[1:, :])
-    v_face = 0.5 * (v_node[:, :-1] + v_node[:, 1:])
+    u_face = 0.5 * (u_node[..., :-1, :] + u_node[..., 1:, :])
+    v_face = 0.5 * (v_node[..., :-1] + v_node[..., 1:])
     return u_face, v_face
 
 
@@ -113,21 +113,21 @@ def advect_intensive(q, u_face, v_face, dt: float, dx: float, mask, second_order
     dtdx = dt / dx
     if second_order:
         fx = _flux_x(q, u_face, dtdx, True)
-        q = q - (fx[:, 1:] - fx[:, :-1]) + q * ((u_face[:, 1:] - u_face[:, :-1]) * dtdx)
+        q = q - (fx[..., 1:] - fx[..., :-1]) + q * ((u_face[..., 1:] - u_face[..., :-1]) * dtdx)
         fy = _flux_y(q, v_face, dtdx, True)
-        q = q - (fy[1:, :] - fy[:-1, :]) + q * ((v_face[1:, :] - v_face[:-1, :]) * dtdx)
+        q = q - (fy[..., 1:, :] - fy[..., :-1, :]) + q * ((v_face[..., 1:, :] - v_face[..., :-1, :]) * dtdx)
         return q * mask
     # edge padding needs a leading batch dimension in F.pad
     qp = F.pad(q[None], (1, 1, 1, 1), mode="replicate")[0]
     # face-upwind differences; u_face (ny, nx+1)
-    uW = u_face[:, :-1]
-    uE = u_face[:, 1:]
-    vS = v_face[:-1, :]
-    vN = v_face[1:, :]
-    dW = qp[1:-1, 1:-1] - qp[1:-1, :-2]
-    dE = qp[1:-1, 2:] - qp[1:-1, 1:-1]
-    dS = qp[1:-1, 1:-1] - qp[:-2, 1:-1]
-    dN = qp[2:, 1:-1] - qp[1:-1, 1:-1]
+    uW = u_face[..., :-1]
+    uE = u_face[..., 1:]
+    vS = v_face[..., :-1, :]
+    vN = v_face[..., 1:, :]
+    dW = qp[..., 1:-1, 1:-1] - qp[..., 1:-1, :-2]
+    dE = qp[..., 1:-1, 2:] - qp[..., 1:-1, 1:-1]
+    dS = qp[..., 1:-1, 1:-1] - qp[..., :-2, 1:-1]
+    dN = qp[..., 2:, 1:-1] - qp[..., 1:-1, 1:-1]
     adv = (
         ties.maximum(uW, 0.0) * dW
         + ties.minimum(uE, 0.0) * dE
@@ -139,4 +139,4 @@ def advect_intensive(q, u_face, v_face, dt: float, dx: float, mask, second_order
 
 def divergence(u_face, v_face, dx: float):
     """Cell-centered velocity divergence [1/s]."""
-    return (u_face[:, 1:] - u_face[:, :-1] + v_face[1:, :] - v_face[:-1, :]) / dx
+    return (u_face[..., 1:] - u_face[..., :-1] + v_face[..., 1:, :] - v_face[..., :-1, :]) / dx

@@ -372,7 +372,7 @@ def dmax_dmean(conc_fsd, p: FSDParams, bins: FSDBins, threshold: float = 0.1):
     idx = torch.argmax(over.to(torch.uint8), dim=0)
     centre = _bin_tensor(bins.centre, conc_fsd.dtype, conc_fsd.device)
     dmax = centre[idx]
-    dmean = (frac * centre[:, None, None]).sum(dim=0)
+    dmean = (frac * centre.view((-1,) + (1,) * (frac.ndim - 1))).sum(dim=0)
     has = ctot > 0.0
     return torch.where(has, dmax, 0.0), torch.where(has, dmean, 0.0)
 

@@ -376,15 +376,15 @@ def explicit_solve(state, forcing, grid_arrays, dt: float, p: DynParams, exchang
     ow = (node_mask > 0.5) & (node_dirichlet < 0.5) & torch.logical_not(consts.has_mass)
     mp = stencil.pad1(node_mask)
     nbr_rden = rdiv(1.0, ties.maximum(
-        mp[:-2, 1:-1] + mp[2:, 1:-1] + mp[1:-1, :-2] + mp[1:-1, 2:], 1.0
+        mp[..., :-2, 1:-1] + mp[..., 2:, 1:-1] + mp[..., 1:-1, :-2] + mp[..., 1:-1, 2:], 1.0
     ))
     for sweep in range(p.nit_ow):
         if exchanger is not None and sweep % exchanger.halo_depth == 0:
             vt_u, vt_v = exchanger.ring((vt_u, vt_v))
         up = stencil.pad1(vt_u)
         vp = stencil.pad1(vt_v)
-        u_bar = (up[:-2, 1:-1] + up[2:, 1:-1] + up[1:-1, :-2] + up[1:-1, 2:]) * nbr_rden
-        v_bar = (vp[:-2, 1:-1] + vp[2:, 1:-1] + vp[1:-1, :-2] + vp[1:-1, 2:]) * nbr_rden
+        u_bar = (up[..., :-2, 1:-1] + up[..., 2:, 1:-1] + up[..., 1:-1, :-2] + up[..., 1:-1, 2:]) * nbr_rden
+        v_bar = (vp[..., :-2, 1:-1] + vp[..., 2:, 1:-1] + vp[..., 1:-1, :-2] + vp[..., 1:-1, 2:]) * nbr_rden
         vt_u = torch.where(ow, u_bar, vt_u)
         vt_v = torch.where(ow, v_bar, vt_v)
 

@@ -36,6 +36,19 @@ arithmetic. ``substep_loop_blocked_reference`` follows the same plan tile
 by tile in plain PyTorch: it pins the schedule (halo width, domain edges,
 ragged tiles, the remainder launch, the ping-pong) on the CPU.
 
+Members (the batched ensemble step, the counterpart of ``jax.vmap`` over the
+Pallas call): a carry of planes ``(N, ny+1, nx+1)`` and ``(N, ny, nx)`` is N
+members' loops, run as one loop of launches whose grid holds the tiles of
+every member (``blockIdx.z``), so a loop is ``ceil(steps / k)`` launches
+whatever N is. A loop-invariant plane is ``(N, ...)`` when it is the
+member's own, or 2-D when all members share it (the grid's, a forcing field
+that no member perturbs): the kernel reads it with a member stride of 0.
+``launch_plan(..., members=N)`` counts the rounds of ``sms`` blocks over N x
+the tiles. Inside a member nothing changes, so member m of a batched loop
+equals the loop of member m alone bitwise, and the plain versions take the
+leading member axis as it is. ``SubstepLoop`` (the gradient) takes one
+member: a batched loop whose gradient is recorded raises ValueError.
+
 A bfloat16 carry runs the kernel's bfloat16 build (``nextsim_substeps_bf16``):
 bfloat16 planes and records (``record_len``: an odd number of 4-byte words
 of 2-byte values), the arithmetic of the plain loop on bfloat16 tensors, one
@@ -113,6 +126,8 @@ _ENTRY = {torch.float32: "nextsim_substeps_f32", torch.float64: "nextsim_substep
           torch.bfloat16: "nextsim_substeps_bf16"}
 #: most substeps a launch that ``launch_plan`` considers
 _MAX_K = 8
+#: most members a launch takes (the grid's z extent)
+MAX_MEMBERS = 65535
 
 # The cost model behind the default plan, in SM clocks, fitted to the
 # kernel's own clock counters on an H100 (``python3 -m
@@ -171,9 +186,11 @@ class LaunchPlan:
     n_planes: int
     smem_bytes: int
     launches: tuple
+    members: int = 1
 
     def tiles(self):
-        """The tiles as (j0, j1, i0, i1): nodes [j0, j1) x [i0, i1)."""
+        """The tiles of one member as (j0, j1, i0, i1): nodes [j0, j1) x
+        [i0, i1); a launch runs them for every member."""
         for by in range(self.blocks_y):
             for bx in range(self.blocks_x):
                 j0, i0 = by * self.tile_h, bx * self.tile_w
@@ -181,9 +198,10 @@ class LaunchPlan:
                        i0, min(i0 + self.tile_w, self.nx + 1))
 
 
-def _best_tile(ny, nx, steps, itemsize, dyn_type, sms, smem_limit, heights, widths, ks):
+def _best_tile(ny, nx, steps, itemsize, dyn_type, sms, smem_limit, heights, widths, ks, members=1):
     """(tile_h, tile_w, k) of least modelled time among the given candidates
-    whose box fits ``smem_limit``, or None when none fits."""
+    whose box fits ``smem_limit``, or None when none fits; the blocks of a
+    launch are ``members`` x the tiles."""
     import numpy as np
 
     th = np.asarray(heights)[:, None, None]
@@ -205,7 +223,7 @@ def _best_tile(ny, nx, steps, itemsize, dyn_type, sms, smem_limit, heights, widt
                               + np.maximum(_CLK_PER_UPDATE * weight * nodes, _CLK_PER_STAGE))
     moved = box * n_planes + th * tw * len(_STATE_USED[dyn_type])
     block = _CLK_PER_BYTE * itemsize * moved + stages + _CLK_PER_BLOCK
-    rounds = -(-(-(-(ny + 1) // th) * -(-(nx + 1) // tw)) // sms)
+    rounds = -(-(members * -(-(ny + 1) // th) * -(-(nx + 1) // tw)) // sms)
     launches = -(-max(steps, 1) // k)
     cost = np.where(fits, launches * (rounds * block + _CLK_PER_LAUNCH), np.inf)
     i, j, m = np.unravel_index(int(np.argmin(cost)), cost.shape)
@@ -215,8 +233,10 @@ def _best_tile(ny, nx, steps, itemsize, dyn_type, sms, smem_limit, heights, widt
 @functools.lru_cache(maxsize=256)
 def launch_plan(ny: int, nx: int, steps: int, dtype, dyn_type: str, tile=None,
                 k=None, threads=None, sms: int = H100_SMS,
-                smem_limit: int = SMEM_LIMIT) -> LaunchPlan:
-    """The launch plan of a ``steps``-substep loop on cells ``(ny, nx)``.
+                smem_limit: int = SMEM_LIMIT, members: int = 1) -> LaunchPlan:
+    """The launch plan of a ``steps``-substep loop on cells ``(ny, nx)``, for
+    ``members`` states at once (a launch's blocks are ``members`` x the
+    tiles).
 
     What is not given -- the ``tile`` (height, width) in nodes, the substeps
     a launch ``k`` -- is chosen for the least time under the module's cost
@@ -232,8 +252,9 @@ def launch_plan(ny: int, nx: int, steps: int, dtype, dyn_type: str, tile=None,
         raise ValueError(f"substep_loop: unknown rheology {dyn_type!r}")
     if dtype not in _MAX_THREADS:
         raise TypeError(f"substep_loop: the CUDA kernel takes float32, float64 or bfloat16, not {dtype}")
-    if ny < 1 or nx < 1 or steps < 0 or sms < 1:
-        raise ValueError(f"substep_loop: no plan for a {ny} x {nx} grid and {steps} substeps")
+    if ny < 1 or nx < 1 or steps < 0 or sms < 1 or not 1 <= members <= MAX_MEMBERS:
+        raise ValueError(f"substep_loop: no plan for a {ny} x {nx} grid, {steps} substeps and "
+                         f"{members} members (1 to {MAX_MEMBERS})")
     threads = _MAX_THREADS[dtype] if threads is None else threads
     if not 1 <= threads <= _MAX_THREADS[dtype]:
         raise ValueError(f"substep_loop: {threads} threads a block is no plan "
@@ -252,7 +273,7 @@ def launch_plan(ny: int, nx: int, steps: int, dtype, dyn_type: str, tile=None,
     heights = range(1, min(ny + 1, 128) + 1) if tile is None else [min(tile[0], ny + 1)]
     widths = range(1, min(nx + 1, 128) + 1) if tile is None else [min(tile[1], nx + 1)]
     ks = range(1, min(_MAX_K, most_k) + 1) if k is None else [max(1, min(k, most_k))]
-    best = _best_tile(ny, nx, steps, itemsize, dyn_type, sms, smem_limit, heights, widths, ks)
+    best = _best_tile(ny, nx, steps, itemsize, dyn_type, sms, smem_limit, heights, widths, ks, members)
     th, tw, k = best if best is not None else (heights[-1], widths[-1], ks[0])
     while smem(th, tw, k) > smem_limit and (th > 1 or tw > 1):
         if th >= tw:
@@ -269,14 +290,15 @@ def launch_plan(ny: int, nx: int, steps: int, dtype, dyn_type: str, tile=None,
         tile_h=th, tile_w=tw, k=k, threads=threads,
         blocks_y=-(-(ny + 1) // th), blocks_x=-(-(nx + 1) // tw),
         n_planes=n_planes, smem_bytes=smem(th, tw, k),
-        launches=(k,) * (steps // k) + ((steps % k,) if steps % k else ()),
+        launches=(k,) * (steps // k) + ((steps % k,) if steps % k else ()), members=members,
     )
 
 
 def launches_for(steps: int, ny: int, nx: int, dtype=torch.float32, dyn_type: str = "bbm",
-                 sms: int = H100_SMS) -> int:
-    """Kernel launches of one ``steps``-substep loop under the default plan."""
-    return len(launch_plan(ny, nx, steps, dtype, dyn_type, sms=sms).launches)
+                 sms: int = H100_SMS, members: int = 1) -> int:
+    """Kernel launches of one ``steps``-substep loop under the default plan
+    (of ``members`` members' loops at once)."""
+    return len(launch_plan(ny, nx, steps, dtype, dyn_type, sms=sms, members=members).launches)
 
 
 class _Plan(ctypes.Structure):
@@ -284,7 +306,7 @@ class _Plan(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int) for n in (
         "tile_h", "tile_w", "halo", "threads", "blocks_y", "blocks_x", "n_planes",
-        "smem_bytes", "n_launches", "pad_",
+        "smem_bytes", "n_launches", "members",
     )]
 
 
@@ -317,12 +339,12 @@ def substep_loop_reference(consts, carry, steps: int, dte: float, dt: float,
 
 
 def _box(a: torch.Tensor, r0: int, r1: int, c0: int, c1: int) -> torch.Tensor:
-    """``a[r0:r1, c0:c1]`` with zeros where the box leaves the plane."""
-    out = a.new_zeros((r1 - r0, c1 - c0))
-    rs, re = max(r0, 0), min(r1, a.shape[0])
-    cs, ce = max(c0, 0), min(c1, a.shape[1])
+    """``a[..., r0:r1, c0:c1]`` with zeros where the box leaves the plane."""
+    out = a.new_zeros(a.shape[:-2] + (r1 - r0, c1 - c0))
+    rs, re = max(r0, 0), min(r1, a.shape[-2])
+    cs, ce = max(c0, 0), min(c1, a.shape[-1])
     if re > rs and ce > cs:
-        out[rs - r0:re - r0, cs - c0:ce - c0] = a[rs:re, cs:ce]
+        out[..., rs - r0:re - r0, cs - c0:ce - c0] = a[..., rs:re, cs:ce]
     return out
 
 
@@ -332,16 +354,19 @@ def substep_loop_blocked_reference(consts, carry, steps: int, dte: float, dt: fl
     and every tile, cut the tile and its halo of ``k`` points out of every
     plane (zeros outside the domain), run the launch's substeps of
     ``momentum._build_substep`` on the cut, and copy the tile alone into the
-    other set of state planes. Equals ``substep_loop_reference`` bitwise;
-    the tests use it, no model path does."""
+    other set of state planes. A batched carry (a leading member axis) is
+    cut alike, every member's tile at once. Equals
+    ``substep_loop_reference`` bitwise; the tests use it, no model path
+    does."""
     from nextsim_tpu_torch.ops import momentum
 
     carry = tuple(carry)
-    ny1, nx1 = carry[0].shape
+    ny1, nx1 = carry[0].shape[-2:]
     ny, nx = ny1 - 1, nx1 - 1
+    members = _members(carry)
     if plan is None:
-        plan = launch_plan(ny, nx, steps, carry[0].dtype, dyn_type)
-    if (plan.ny, plan.nx, plan.steps, plan.dyn_type) != (ny, nx, steps, dyn_type):
+        plan = launch_plan(ny, nx, steps, carry[0].dtype, dyn_type, members=members)
+    if (plan.ny, plan.nx, plan.steps, plan.dyn_type, plan.members) != (ny, nx, steps, dyn_type, members):
         raise ValueError("substep_loop_blocked_reference: the plan is for another loop")
     slots = [[c.clone() for c in carry], [torch.empty_like(c) for c in carry]]
     for g, k in enumerate(plan.launches):
@@ -353,9 +378,9 @@ def substep_loop_blocked_reference(consts, carry, steps: int, dte: float, dt: fl
             cbox = (j0 - k, j1 + k - 1, i0 - k, i1 + k - 1)
 
             def cut(a):
-                if not isinstance(a, torch.Tensor) or a.ndim != 2:
+                if not isinstance(a, torch.Tensor) or a.ndim < 2:
                     return a
-                return _box(a, *(nbox if tuple(a.shape) == (ny1, nx1) else cbox))
+                return _box(a, *(nbox if tuple(a.shape[-2:]) == (ny1, nx1) else cbox))
 
             tile_consts = SimpleNamespace(**{n: cut(v) for n, v in vars(consts).items()})
             body = momentum._build_substep(p, dyn_type, dte, dt, dx, tile_consts)
@@ -364,10 +389,10 @@ def substep_loop_blocked_reference(consts, carry, steps: int, dte: float, dt: fl
                 tile = body(tile)
             for name, out, t in zip(_STATE, dst, tile):
                 if name.startswith(("vt", "ut")):
-                    out[j0:j1, i0:i1] = t[k:k + j1 - j0, k:k + i1 - i0]
+                    out[..., j0:j1, i0:i1] = t[..., k:k + j1 - j0, k:k + i1 - i0]
                 else:
                     cj, ci = min(j1, ny), min(i1, nx)
-                    out[j0:cj, i0:ci] = t[k:k + cj - j0, k:k + ci - i0]
+                    out[..., j0:cj, i0:ci] = t[..., k:k + cj - j0, k:k + ci - i0]
     return tuple(slots[len(plan.launches) % 2])
 
 
@@ -382,8 +407,15 @@ def substep_loop(consts, carry, steps: int, dte: float, dt: float, dx: float,
     gradient is recorded (grad mode on, and a carry plane, a plane the body
     reads or a tensor scalar of ``p`` requires grad) goes through
     ``substep_loop_checkpointed``; any other runs under ``torch.no_grad()``
-    and returns planes that no graph holds."""
+    and returns planes that no graph holds. A batched carry (a leading
+    member axis) runs every member at once; its gradient is not taken
+    (ValueError)."""
     device = carry[0].device
+    if _members(carry) > 1 and torch.is_grad_enabled() and any(
+            t.requires_grad for t in _grad_inputs(consts, carry, p)):
+        raise ValueError("substep_loop: a batched loop (a member axis) whose gradient is recorded; "
+                         "momentum_cuda.SubstepLoop takes one member: differentiate each member's "
+                         "Simulator.raw_step_fn")
     if device.type == "cpu":
         return substep_loop_reference(consts, carry, steps, dte, dt, dx, dyn_type, p)
     if device.type != "cuda":
@@ -395,32 +427,45 @@ def substep_loop(consts, carry, steps: int, dte: float, dt: float, dx: float,
         return _substep_loop_cuda(consts, carry, steps, dte, dt, dx, dyn_type, p)
 
 
+def _members(carry) -> int:
+    """Members of a carry: N for planes (N, h, w), 1 for 2-D planes."""
+    return carry[0].shape[0] if carry[0].ndim == 3 else 1
+
+
 def _kernel_inputs(consts, carry, dyn_type):
     """The carry's planes and the loop-invariant planes the kernel reads,
-    by name, checked: (state, consts). Raises on what the kernel does not
-    take."""
+    by name, checked, and every plane's member stride in values (0 for a
+    2-D plane that the members share): (state, consts, strides). Raises on
+    what the kernel does not take."""
     if dyn_type not in _RHEOLOGY:
         raise ValueError(f"substep_loop: unknown rheology {dyn_type!r}")
     dtype = carry[0].dtype
     if dtype not in _ENTRY:
         raise TypeError(f"substep_loop: the CUDA kernel takes float32, float64 or bfloat16, not {dtype}")
     device = carry[0].device
-    ny1, nx1 = carry[0].shape
+    if carry[0].ndim not in (2, 3):
+        raise ValueError(f"substep_loop: a carry plane is {tuple(carry[0].shape)}: (ny+1, nx+1) planes, "
+                         "or (N, ny+1, nx+1) for N members")
+    ny1, nx1 = carry[0].shape[-2:]
     ny, nx = ny1 - 1, nx1 - 1
+    batch = tuple(carry[0].shape[:-2])
+    strides = {}
 
-    def check(name, a, shape):
+    def check(name, a, shape, shared=True):
         if not isinstance(a, torch.Tensor):
             raise TypeError(f"substep_loop: plane {name} is not a tensor")
-        if tuple(a.shape) != shape or a.dtype != dtype or a.device != device:
+        want = (batch + shape,) + ((shape,) if shared and batch else ())
+        if tuple(a.shape) not in want or a.dtype != dtype or a.device != device:
             raise ValueError(
                 f"substep_loop: plane {name} is {tuple(a.shape)} {a.dtype} on "
-                f"{a.device}; the kernel needs {shape} {dtype} on {device}"
+                f"{a.device}; the kernel needs {' or '.join(map(str, want))} {dtype} on {device}"
             )
         if not a.is_contiguous():
             raise ValueError(f"substep_loop: plane {name} is not contiguous")
+        strides[name] = a.shape[-2] * a.shape[-1] if a.ndim == 3 else 0
         return a
 
-    state = {name: check(name, a, (ny1, nx1) if name.startswith(("vt", "ut")) else (ny, nx))
+    state = {name: check(name, a, (ny1, nx1) if name.startswith(("vt", "ut")) else (ny, nx), shared=False)
              for name, a in zip(_STATE, carry)}
     planes = {}
     for name in _CELL_USED[dyn_type]:
@@ -431,22 +476,23 @@ def _kernel_inputs(consts, carry, dyn_type):
         if name == "solve" and isinstance(a, torch.Tensor) and a.dtype == torch.bool:
             a = a.to(dtype)  # the kernel tests solve > 0.5
         planes[name] = check(name, a, (ny1, nx1))
-    return state, planes
+    return state, planes, strides
 
 
 def _default_plan(carry, steps, dyn_type) -> LaunchPlan:
     """``launch_plan`` of this loop for the carry's device."""
     device = carry[0].device
-    ny1, nx1 = carry[0].shape
+    ny1, nx1 = carry[0].shape[-2:]
     sms = (torch.cuda.get_device_properties(device).multi_processor_count
            if device.type == "cuda" else H100_SMS)
-    return launch_plan(ny1 - 1, nx1 - 1, steps, carry[0].dtype, dyn_type, sms=sms)
+    return launch_plan(ny1 - 1, nx1 - 1, steps, carry[0].dtype, dyn_type, sms=sms, members=_members(carry))
 
 
-def _launch(planes, second, plan: LaunchPlan, launch_steps, dte, dt, dx, dyn_type, p):
+def _launch(planes, second, plan: LaunchPlan, launch_steps, dte, dt, dx, dyn_type, p, strides):
     """Run ``launch_steps`` launches of the kernel under ``plan``: launch g
     reads the state planes of ``planes`` (g even) or ``second`` (g odd) and
-    writes the other set. Counts the launches; raises on a failed launch."""
+    writes the other set; ``strides`` are the planes' member strides.
+    Counts the launches; raises on a failed launch."""
     global launches
     lib = _library()
     ptrs = (ctypes.c_void_p * len(_PLANES))(
@@ -458,15 +504,16 @@ def _launch(planes, second, plan: LaunchPlan, launch_steps, dte, dt, dx, dyn_typ
     c_plan = _Plan(
         tile_h=plan.tile_h, tile_w=plan.tile_w, halo=plan.k, threads=plan.threads,
         blocks_y=plan.blocks_y, blocks_x=plan.blocks_x, n_planes=plan.n_planes,
-        smem_bytes=plan.smem_bytes, n_launches=len(launch_steps), pad_=0,
+        smem_bytes=plan.smem_bytes, n_launches=len(launch_steps), members=plan.members,
     )
     c_steps = (ctypes.c_int * len(launch_steps))(*launch_steps)
+    c_strides = (ctypes.c_longlong * len(_PLANES))(*[strides.get(n, 0) for n in _PLANES])
     params = _params(plan.ny, plan.nx, plan.steps, dte, dt, dx, dyn_type, p)
     device = planes["vt_u"].device
     fn = getattr(lib, _ENTRY[planes["vt_u"].dtype])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(ptrs, ptrs_b, ctypes.byref(params), ctypes.byref(c_plan), c_steps,
+        err = fn(ptrs, ptrs_b, ctypes.byref(params), ctypes.byref(c_plan), c_steps, c_strides,
                  ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(
@@ -476,14 +523,14 @@ def _launch(planes, second, plan: LaunchPlan, launch_steps, dte, dt, dx, dyn_typ
 
 
 def _check_plan(plan: LaunchPlan, carry, steps, dyn_type):
-    ny1, nx1 = carry[0].shape
-    if (plan.ny, plan.nx, plan.steps, plan.dyn_type, plan.itemsize) != (
-            ny1 - 1, nx1 - 1, steps, dyn_type, carry[0].element_size()):
+    ny1, nx1 = carry[0].shape[-2:]
+    if (plan.ny, plan.nx, plan.steps, plan.dyn_type, plan.itemsize, plan.members) != (
+            ny1 - 1, nx1 - 1, steps, dyn_type, carry[0].element_size(), _members(carry)):
         raise ValueError("substep_loop: the plan is for another loop")
 
 
 def _substep_loop_cuda(consts, carry, steps, dte, dt, dx, dyn_type, p, plan: LaunchPlan = None):
-    state, planes = _kernel_inputs(consts, carry, dyn_type)
+    state, planes, strides = _kernel_inputs(consts, carry, dyn_type)
     plan = _default_plan(carry, steps, dyn_type) if plan is None else plan
     _check_plan(plan, carry, steps, dyn_type)
     _library()
@@ -494,7 +541,7 @@ def _substep_loop_cuda(consts, carry, steps, dte, dt, dx, dyn_type, p, plan: Lau
     if not plan.launches:
         return tuple(planes[n] for n in _STATE)
     second = {n: torch.empty_like(planes[n]) for n in _STATE_USED[dyn_type]}
-    _launch(planes, second, plan, plan.launches, dte, dt, dx, dyn_type, p)
+    _launch(planes, second, plan, plan.launches, dte, dt, dx, dyn_type, p, strides)
     result = second if len(plan.launches) % 2 else planes
     return tuple(result.get(n, planes[n]) for n in _STATE)
 
@@ -503,10 +550,10 @@ def _kernel_segment(consts, carry, k, dte, dt, dx, dyn_type, p, plan: LaunchPlan
     """One launch of the kernel under ``plan``, ``k`` substeps from
     ``carry`` into new state planes (the carry is read, not written): the
     forward of ``substep_loop_checkpointed`` on the card."""
-    state, planes = _kernel_inputs(consts, carry, dyn_type)
+    state, planes, strides = _kernel_inputs(consts, carry, dyn_type)
     planes.update(state)
     second = {n: torch.empty_like(state[n]) for n in _STATE_USED[dyn_type]}
-    _launch(planes, second, plan, (k,), dte, dt, dx, dyn_type, p)
+    _launch(planes, second, plan, (k,), dte, dt, dx, dyn_type, p, strides)
     return tuple(second.get(n, state[n]) for n in _STATE)
 
 
@@ -641,14 +688,18 @@ def substep_loop_checkpointed(consts, carry, steps: int, dte: float, dt: float, 
     the loop's default plan, and ``segments`` the plan's launches, the same
     launches as the forward-only path. The tests hand in
     ``substep_loop_reference`` to run the checkpoints and the recompute on
-    the CPU; ``segments`` then defaults to the plan's launches too."""
+    the CPU; ``segments`` then defaults to the plan's launches too. It takes
+    one member: a batched carry raises ValueError."""
+    if _members(carry) > 1:
+        raise ValueError("substep_loop_checkpointed: a batched carry (a member axis); SubstepLoop "
+                         "takes one member")
     if advance is None:
         plan = _default_plan(carry, steps, dyn_type)
         _check_plan(plan, carry, steps, dyn_type)
         advance = functools.partial(_kernel_segment, plan=plan)
         segments = plan.launches
     elif segments is None:
-        ny1, nx1 = carry[0].shape
+        ny1, nx1 = carry[0].shape[-2:]
         segments = launch_plan(ny1 - 1, nx1 - 1, steps, carry[0].dtype, dyn_type).launches
     if sum(segments) != steps:
         raise ValueError(f"substep_loop: segments {segments} are not {steps} substeps")
@@ -747,7 +798,8 @@ def load(path: Path):
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_Params),
-                       ctypes.POINTER(_Plan), ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
+                       ctypes.POINTER(_Plan), ctypes.POINTER(ctypes.c_int),
+                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.nextsim_cuda_error_string.argtypes = [ctypes.c_int]
     lib.nextsim_cuda_error_string.restype = ctypes.c_char_p

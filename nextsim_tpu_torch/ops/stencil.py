@@ -9,6 +9,9 @@ the CPU they agree with it to rounding.
 
 Array layout: cells (ny, nx); nodes (ny+1, nx+1); index [j, i] = [y, x];
 cell (j, i) has corner nodes SW=(j,i), SE=(j,i+1), NW=(j+1,i), NE=(j+1,i+1).
+Every operator takes planes with leading axes (a member axis, (N, ny, nx))
+and works on the last two: each leading index gives the bits of its own
+plane.
 """
 
 from __future__ import annotations
@@ -22,17 +25,18 @@ from nextsim_tpu_torch.core import ties
 
 
 def pad1(a: torch.Tensor) -> torch.Tensor:
-    """Zero-pad a 2-D plane by one on every side (``jnp.pad(a, 1)``)."""
+    """Zero-pad the last two axes by one on every side (``jnp.pad(a, 1)`` of
+    a plane)."""
     return F.pad(a, (1, 1, 1, 1))
 
 
 def cell_corners(nodal):
     """Return the 4 corner-node views (SW, SE, NW, NE), each of cell shape."""
     return (
-        nodal[:-1, :-1],
-        nodal[:-1, 1:],
-        nodal[1:, :-1],
-        nodal[1:, 1:],
+        nodal[..., :-1, :-1],
+        nodal[..., :-1, 1:],
+        nodal[..., 1:, :-1],
+        nodal[..., 1:, 1:],
     )
 
 
@@ -58,14 +62,14 @@ def cells_to_node_sum(cell_field) -> torch.Tensor:
     """Scatter-add a cell field to its 4 corner nodes (adjoint of corner
     gather); node (j,i) accumulates cells (j-1..j, i-1..i)."""
     p = pad1(cell_field)
-    return p[:-1, :-1] + p[:-1, 1:] + p[1:, :-1] + p[1:, 1:]
+    return p[..., :-1, :-1] + p[..., :-1, 1:] + p[..., 1:, :-1] + p[..., 1:, 1:]
 
 
 def node_max_of_cells(cell_field) -> torch.Tensor:
     """Max over the (up to) 4 cells adjacent to each node."""
     p = pad1(cell_field)
     return torch.maximum(
-        torch.maximum(p[:-1, :-1], p[:-1, 1:]), torch.maximum(p[1:, :-1], p[1:, 1:])
+        torch.maximum(p[..., :-1, :-1], p[..., :-1, 1:]), torch.maximum(p[..., 1:, :-1], p[..., 1:, 1:])
     )
 
 
@@ -81,7 +85,7 @@ def stress_divergence(sxx, syy, sxy, volume, dx: float):
         ps = pad1(f1 + f2)
         pd = pad1(f1 - f2)
         return (
-            ps[:-1, :-1] - pd[:-1, 1:] + pd[1:, :-1] - ps[1:, 1:]
+            ps[..., :-1, :-1] - pd[..., :-1, 1:] + pd[..., 1:, :-1] - ps[..., 1:, 1:]
         ) * r
 
     grad_u = dxy_pair(volume * sxx, vsxy)
@@ -105,8 +109,8 @@ def neighbor_mean_nodes(u, node_ok) -> torch.Tensor:
     (``node_ok`` is 1.0 where a neighbour may contribute)."""
     up = pad1(u * node_ok)
     wp = pad1(node_ok)
-    num = up[:-2, 1:-1] + up[2:, 1:-1] + up[1:-1, :-2] + up[1:-1, 2:]
-    den = wp[:-2, 1:-1] + wp[2:, 1:-1] + wp[1:-1, :-2] + wp[1:-1, 2:]
+    num = up[..., :-2, 1:-1] + up[..., 2:, 1:-1] + up[..., 1:-1, :-2] + up[..., 1:-1, 2:]
+    den = wp[..., :-2, 1:-1] + wp[..., 2:, 1:-1] + wp[..., 1:-1, :-2] + wp[..., 1:-1, 2:]
     return num / ties.maximum(den, 1.0)
 
 
@@ -130,11 +134,11 @@ def laplacian_cells(field, mask, dx: float) -> torch.Tensor:
     (reference: diffuse(), finiteelement.cpp:2760-2815)."""
     fp = pad1(field)
     mp = pad1(mask)
-    c = fp[1:-1, 1:-1]
+    c = fp[..., 1:-1, 1:-1]
     out = (
-        mp[:-2, 1:-1] * (fp[:-2, 1:-1] - c)
-        + mp[2:, 1:-1] * (fp[2:, 1:-1] - c)
-        + mp[1:-1, :-2] * (fp[1:-1, :-2] - c)
-        + mp[1:-1, 2:] * (fp[1:-1, 2:] - c)
+        mp[..., :-2, 1:-1] * (fp[..., :-2, 1:-1] - c)
+        + mp[..., 2:, 1:-1] * (fp[..., 2:, 1:-1] - c)
+        + mp[..., 1:-1, :-2] * (fp[..., 1:-1, :-2] - c)
+        + mp[..., 1:-1, 2:] * (fp[..., 1:-1, 2:] - c)
     )
     return mask * out / (dx * dx)

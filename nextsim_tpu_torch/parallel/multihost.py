@@ -16,7 +16,9 @@ The Simulator runs the same host logic on every rank, which guarantees
 that.
 
 Sub-groups: a batched ensemble on a member mesh (ensemble/batched.py) runs
-one group of ranks for each slot of members. ``member_groups`` makes them
+one group of ranks for each slot of members (a group of one block advances
+its members by one batched step, a group of several blocks steps them one
+by one). ``member_groups`` makes them
 (every rank takes part in making every group, as ``dist.new_group`` asks),
 ``gather_to_host`` takes the group of the layout's blocks, and
 ``broadcast_host`` sends a host tree from one rank to all.

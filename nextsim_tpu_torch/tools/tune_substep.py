@@ -24,7 +24,8 @@ printed with them.
 --old-tree   a checkout of another commit (say, the parent's, unpacked by
              ``git archive`` into a git-ignored directory): its
              ``momentum_cuda.substep_loop`` is built there and timed in turns
-             with this tree's, at 464^2 and 1216^2;
+             with this tree's, at 464^2, 608^2 and 1216^2 in float32 and at
+             464^2 in bfloat16;
 --main-path  with --old-tree: ms/step of the 464^2 and 1216^2 main path
              (thermo off, 10-step chunks) with the old and the new kernel in
              turns, the old one patched into this tree's ``momentum``.
@@ -175,19 +176,19 @@ def load_old(tree):
 
 
 def old_and_new(old, smi, main_path):
-    for n, dx in ((464, 10e3), (608, 10e3), (1216, 5e3)):
-        sim = spun_up(n, dx)
+    for n, dx, dtype_name in ((464, 10e3, "float32"), (608, 10e3, "float32"), (1216, 5e3, "float32"),
+                              (464, 10e3, "bfloat16")):
+        sim = spun_up(n, dx, dtype_name)
         for dyn in ("bbm", "evp", "mevp"):
             f_old, f_new = loop_fn(sim, dyn, fn=old.substep_loop), loop_fn(sim, dyn, fn=momentum_cuda.substep_loop)
             same = all(torch.equal(a, b) for a, b in zip(f_old(), f_new()))
             t = [event_ms(f) for f in (f_old, f_new, f_new, f_old)]
-            bound = kernel_bound_ms(n, n, 120, torch.float32, dyn)[0]
-            print(f"old/new {n}^2 {dyn} f32, one 120-substep loop: old {t[0]:.3f} / {t[3]:.3f} ms "
-                  f"(240 launches), new "
-                  f"{t[1]:.3f} / {t[2]:.3f} ms ({momentum_cuda.launches_for(120, n, n, torch.float32, dyn)} "
-                  f"launches), bound {bound:.3f} ms; results {'bitwise equal' if same else 'DIFFER'} "
+            bound = kernel_bound_ms(n, n, 120, sim.dtype, dyn)[0]
+            print(f"old/new {n}^2 {dyn} {dtype_name}, one 120-substep loop: old {t[0]:.3f} / {t[3]:.3f} ms, new "
+                  f"{t[1]:.3f} / {t[2]:.3f} ms ({momentum_cuda.launches_for(120, n, n, sim.dtype, dyn)} "
+                  f"launches each), bound {bound:.3f} ms; results {'bitwise equal' if same else 'DIFFER'} "
                   f"(order old, new, new, old); {smi}", flush=True)
-        if main_path:
+        if main_path and dtype_name == "float32":
             sim = make_sim(dict(BENCH, **{"grid.nx": n, "grid.ny": n, "grid.resolution": dx}))
             sim.step_chunk(2)
             new_loop = momentum_cuda.substep_loop

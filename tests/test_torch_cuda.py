@@ -43,12 +43,22 @@ its blocked reference bitwise, for the three rheologies; a plane of another
 dtype raises; a bfloat16 Simulator steps through it; a bfloat16 gradient
 goes through SubstepLoop.
 
+Members (the batched ensemble): one batched launch of N members' loops
+(``blockIdx.z`` the member, a 2-D plane shared with a member stride of 0)
+equals N single launches and the plain loop bitwise, for the three
+rheologies in float32, float64 and bfloat16, in the launches of one loop;
+a bad member stride is refused by the kernel itself. The batched ensemble
+step captured as a CUDA graph equals the eager batched step and the member
+loop ``step_members`` bitwise, at 464^2 thermo on.
+
 Reverse mode on the card (``momentum_cuda.SubstepLoop``): the gradient
 through ``substep_loop`` against straight autograd through the plain loop
 on the card, for the three rheologies in float32 and float64, and the
 regression test of the fault it repairs (a backward that took the kernel's
 loop for the identity), at an even and an odd launch count.
 """
+
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -676,3 +686,92 @@ def test_captured_dataset_chunks_refresh_their_forcing(cuda, tmp_path, monkeypat
         winds.append(a.last_forcing.wind_u.clone())
     assert not torch.equal(winds[0], winds[1])
     assert len(a._program.graphs) == 1
+
+
+# ---------------------------------------------------------------------------
+# members: the batched launch and the batched ensemble step
+# ---------------------------------------------------------------------------
+
+def _member_setup(dyn_type, dtype_name, n=3):
+    """n members' loops on the 33^2 square, each after a step under its own
+    wind: (sim, consts, carry, [(consts, carry) of each member]); a plane
+    every member has equal stays one shared 2-D plane, the others are
+    stacked on a member axis."""
+    loops = [_setup(dyn_type, dtype_name, **{"ideal_simul.constant_wind_u": 8.0 + 3.0 * m,
+                                             "ideal_simul.constant_wind_v": -2.0 * m}) for m in range(n)]
+    consts = {}
+    for name in vars(loops[0][1]):
+        vals = [getattr(c, name) for _, c, _ in loops]
+        shared = not isinstance(vals[0], torch.Tensor) or all(torch.equal(v, vals[0]) for v in vals)
+        consts[name] = vals[0] if shared else torch.stack(vals)
+    carry = tuple(torch.stack(planes) for planes in zip(*(cr for _, _, cr in loops)))
+    return loops[0][0], SimpleNamespace(**consts), carry, [(c, cr) for _, c, cr in loops]
+
+
+@pytest.mark.parametrize("steps", [3, 40])
+@pytest.mark.parametrize("dtype_name", ["float32", "float64", "bfloat16"])
+@pytest.mark.parametrize("dyn_type", ["bbm", "evp", "mevp"])
+def test_batched_kernel_equals_single_launches_and_the_plain_loop(cuda, dyn_type, dtype_name, steps):
+    sim, consts, carry, singles = _member_setup(dyn_type, dtype_name)
+    assert any(isinstance(v, torch.Tensor) and v.ndim == 2 for v in vars(consts).values())
+    launches = momentum_cuda.launches
+    out = _loop(momentum_cuda.substep_loop, sim, consts, carry, steps)
+    assert momentum_cuda.launches == launches + momentum_cuda.launches_for(
+        steps, 33, 33, sim.dtype, dyn_type, members=3)
+    plain = _loop(momentum_cuda.substep_loop_reference, sim, consts, carry, steps)
+    torch.cuda.synchronize()
+    assert not torch.equal(out[0][0], out[0][2])
+    for m, (c, cr) in enumerate(singles):
+        one = _loop(momentum_cuda.substep_loop, sim, c, cr, steps)
+        for name, o, p, r in zip(momentum_cuda._STATE, out, plain, one):
+            assert o.shape == (3,) + r.shape and bool(torch.isfinite(o).all()), name
+            assert torch.equal(o[m], r), f"member {m} {name}: batched launch vs single launch"
+            assert torch.equal(o[m], p[m]), f"member {m} {name}: batched launch vs plain loop"
+
+
+def test_batched_kernel_refuses_a_bad_member_stride(cuda):
+    """The kernel's own check: a written state plane that all members would
+    share (stride 0), or a stride that is no plane's size, is
+    cudaErrorInvalidValue; the wrapper refuses a plane of another member
+    count before that."""
+    sim, consts, carry, _ = _member_setup("bbm", "float32", n=2)
+    state, planes, strides = momentum_cuda._kernel_inputs(consts, carry, "bbm")
+    planes.update(state)
+    plan = momentum_cuda._default_plan(carry, 3, "bbm")
+    second = {n: torch.empty_like(state[n]) for n in momentum_cuda._STATE}
+    for bad in ({"sxx": 0}, {"conc": 7}):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            momentum_cuda._launch(planes, second, plan, (3,), sim.dt / 40, sim.dt, sim.grid.dx, "bbm",
+                                  sim.dyn, dict(strides, **bad))
+    three = SimpleNamespace(**dict(vars(consts), tau_ax=torch.stack([consts.tau_ax[0]] * 3)))
+    with pytest.raises(ValueError, match="tau_ax"):
+        _loop(momentum_cuda.substep_loop, sim, three, carry, 3)
+
+
+@pytest.mark.parametrize("dyn_type", ["bbm", "evp", "mevp"])
+def test_captured_batched_step_equals_eager_and_the_member_loop(cuda, dyn_type):
+    """464^2 thermo on, 3 members (the control and 2 perturbed), 3 steps:
+    ``step`` (one replay of the batched step's graph, captured at its first
+    call) equals the eager batched step and ``step_members`` bitwise, every
+    member; a batched step launches the kernel one loop's worth for all
+    members, the member loop three."""
+    from nextsim_tpu_torch.ensemble.batched import BatchedEnsemble
+
+    over = _bench464(**{"setup.dynamics-type": dyn_type, "thermo.use_thermo_forcing": True,
+                        "ideal_simul.init_SST_limit": 10.0})
+    ens = [BatchedEnsemble(Config(overrides=over), 3, device="cuda") for _ in range(3)]
+    ens[1]._program.capture = False  # the eager batched step
+    per_loop = momentum_cuda.launches_for(ens[0].sim.dyn.substeps, 464, 464, ens[0].sim.dtype, dyn_type, members=3)
+    one_loop = _launches(ens[0].sim, ens[0].sim.dyn.substeps)
+    for step in range(3):
+        for e, run, want in ((ens[0], ens[0].step, per_loop), (ens[1], ens[1].step, per_loop),
+                             (ens[2], ens[2].step_members, 3 * one_loop)):
+            launches = momentum_cuda.launches
+            run()
+            assert momentum_cuda.launches == launches + want, step
+        for k in range(3):
+            for other in ens[1:]:
+                _equal_states(ens[0].member_state(k), other.member_state(k), f"step {step}, member {k}")
+    assert len(ens[0]._program.graphs) == 1 and not ens[1]._program.graphs
+    assert ens[0]._program.stats["kernel_launches"] == per_loop and not ens[0].violations.any()
+    assert not torch.equal(ens[0].member_state(1).vt_u, ens[0].member_state(2).vt_u)

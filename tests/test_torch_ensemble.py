@@ -19,10 +19,20 @@ With the port's own generators: the statistics of tests/test_extensions.py
 unperturbed), a chunked perturbed run equal to the per-step one bitwise, and
 batched member m equal to ``Simulator(member=m)`` bitwise. Then the batched
 outputs (statistics record, npz checkpoint, member restarts) and the driver.
+
+The batched step (``Simulator.batched_step_fn``, all members at once, the
+counterpart of the JAX package's vmapped ``_vstep``; one graph replay on the
+card, tests/test_torch_cuda.py) against the member loop ``step_members``:
+bitwise for bbm, evp and mevp, thermo on, in float32 and float64 (3
+members, 3 steps); its body reads nothing back from the device (the
+dispatch-mode check of tests/test_torch_chunk.py); and a configuration
+that keeps the member loop (FSD Roach welding) logs its reason once and
+runs the loop.
 """
 
 import dataclasses
 import glob
+import logging
 import math
 from types import SimpleNamespace
 
@@ -48,10 +58,12 @@ from nextsim_tpu_torch.ensemble import EnsembleForcing as PEnsembleForcing
 from nextsim_tpu_torch.ensemble import PerturbationParams as PPerturbationParams
 from nextsim_tpu_torch.ensemble import run_ensemble
 from nextsim_tpu_torch.ensemble.batched import BatchedEnsemble as PBatchedEnsemble
-from nextsim_tpu_torch.ensemble.perturbation import draw_phases, member_generator, spectral_noise
+from nextsim_tpu_torch.ensemble.perturbation import draw_phases, member_generator, spectral_noise, stack_forcings
 from nextsim_tpu_torch.forcing.base import Forcing as PForcing
 from nextsim_tpu_torch.forcing.providers import ConstantForcing as PConstantForcing
 from nextsim_tpu_torch.grid.grid import Grid as PGrid
+from nextsim_tpu_torch.model.checks import CELL_BOUNDS, YOUNG_BOUNDS
+from test_torch_chunk import _NoReadBack
 from test_torch_momentum import jax_to_numpy
 
 torch.set_num_threads(1)
@@ -290,6 +302,8 @@ def test_batched_ensemble_matches_jax(jax_runs, monkeypatch):
     ens.states = ens.states.replace(**{k: torch.stack([getattr(init, k)] * 3) for k in jax_runs.init})
     inject(monkeypatch, ens._pert, dict(zip(ens.generators, (jax_runs.stacks[1], jax_runs.stacks[2]))))
     ens.run(STEPS)
+    assert ens.loop_reason is None  # the batched step, JAX's vmapped _vstep
+    assert tuple(ens.violations.shape) == (3, len(CELL_BOUNDS + YOUNG_BOUNDS) + 1) and not ens.violations.any()
     for k in range(3):
         assert_states_close(jax_runs.members[k], state_to_numpy(ens.member_state(k)), 1e-9, f"member {k}")
     assert ens.spread(("sst", "vt_u"))["sst"] > 0.0
@@ -310,6 +324,65 @@ def test_batched_members_equal_single_simulators():
         assert_states_equal(state_to_numpy(sim.state), state_to_numpy(ens.member_state(m)), f"member {m}")
     d = np.abs(ens.member_state(1).sst.numpy() - ens.member_state(2).sst.numpy()).max()
     assert d > 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the batched step against the member loop
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+@pytest.mark.parametrize("dyn_type", ["bbm", "evp", "mevp"])
+def test_batched_step_equals_the_member_loop_bitwise(dyn_type, dtype_name):
+    over = dict(ENS, **{"setup.dynamics-type": dyn_type, "tpu.dtype": dtype_name})
+    a = PBatchedEnsemble(PConfig(overrides=over), 3, device="cpu")
+    b = PBatchedEnsemble(PConfig(overrides=over), 3, device="cpu")
+    assert a.loop_reason is None
+    for _ in range(STEPS):
+        a.step()
+        b.step_members()
+    assert a.pcpt == b.pcpt == STEPS and b.violations is None
+    assert tuple(a.violations.shape) == (3, len(CELL_BOUNDS + YOUNG_BOUNDS) + 1) and not a.violations.any()
+    for k in range(3):
+        assert_states_equal(state_to_numpy(a.member_state(k)), state_to_numpy(b.member_state(k)), f"member {k}")
+    assert torch.equal(a._ran, b._ran)
+    assert not torch.equal(a.member_state(1).vt_u, a.member_state(2).vt_u)
+
+
+def test_batched_step_reads_nothing_back():
+    ens = PBatchedEnsemble(PConfig(overrides=dict(ENS)), 3, device="cpu")
+    sim = ens.sim
+    forcing = stack_forcings(ens._member_forcings(sim.current_time + sim.dt / 86400.0))
+    assert forcing.tair.shape == (3, 24, 24) and forcing.ocean_u.shape == (25, 25)
+    flags = sim.time_flags([sim.time_info_at(sim.current_time)])
+    with _NoReadBack():
+        states, viol = ens._batched_body(ens.states, forcing, flags)
+    assert tuple(states.tice.shape) == (3, 3, 24, 24) and viol.shape[0] == 3 and int(viol.sum()) == 0
+    assert bool(torch.isfinite(states.vt_u).all())
+
+
+def test_member_loop_configuration_logs_its_reason(caplog, monkeypatch):
+    """FSD Roach welding reads back: the ensemble steps its members one by
+    one, says why once, and never calls the batched step."""
+    over = dict(ENS, **{"dynamics.substeps": 10, "wave_coupling.num_fsd_bins": 6,
+                        "wave_coupling.welding_type": "roach"})
+    ens = PBatchedEnsemble(PConfig(overrides=over), 2, device="cpu")
+    assert "Roach welding" in ens.loop_reason and ens.loop_reason == ens.sim.member_loop_reason()
+
+    def refuse(*args):
+        raise AssertionError("the batched step ran")
+
+    monkeypatch.setattr(ens.sim, "batched_step_fn", refuse)
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger="nextsim_tpu"):
+        ens.run(2)
+    logged = [r.getMessage() for r in caplog.records if "one by one" in r.getMessage()]
+    assert len(logged) == 1 and "Roach welding" in logged[0], logged
+    assert ens.pcpt == 2 and ens.violations is None
+    assert bool(torch.isfinite(ens.states.conc_fsd).all())
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="one by one"):
+        ens.sim.batched_step_fn(ens.states, ens.sim.forcing_provider(ens.current_time, ens.sim.time_init),
+                                ens.sim.time_info())
 
 
 # ---------------------------------------------------------------------------

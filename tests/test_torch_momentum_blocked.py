@@ -23,19 +23,36 @@ schedule must get right is tested here without a GPU:
   ``momentum_pallas.substep_loop_blocked`` in interpret mode and through
   the port's blocked reference, float32, 3 substeps, with the tight tier
   of tests/test_torch_momentum.py (relative 1e-5 of each field's magnitude:
-  XLA contracts multiply-adds on the CPU, torch does not).
+  XLA contracts multiply-adds on the CPU, torch does not);
+* members (the batched ensemble's loop, one launch for all members on the
+  card): the blocked reference on a member axis under a multi-tile plan
+  for 3 members, and the plain loop on it, equal each member's own plain
+  loop bitwise (a plane the members share stays one 2-D plane); a plan for
+  N members counts N x the tiles in its rounds of SMs; a batched loop whose
+  gradient is recorded raises; and ``jax.vmap`` of the JAX
+  ``explicit_solve`` with the Pallas kernel (interpret mode) over 2 members
+  against the port's ``explicit_solve`` on the member-minor stack through
+  the batched blocked reference, float32, 3 substeps, tight tier.
 """
 
+import dataclasses
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from nextsim_tpu.ops import momentum as jmom
 from nextsim_tpu.ops import momentum_pallas
 from nextsim_tpu_torch import Config, Simulator
+from nextsim_tpu_torch.core.state import member_minor
+from nextsim_tpu_torch.ensemble.perturbation import stack_forcings
 from nextsim_tpu_torch.ops import momentum, momentum_cuda
-from test_torch_momentum import (CARRY, RTOL_F32, assert_close, capture_jax_loop,
+from test_torch_momentum import (CARRY, FIELDS, RTOL_F32, assert_close, capture_jax_loop,
                                  consts_to_torch, make_pair, to_torch)
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
@@ -159,10 +176,11 @@ def test_default_plan_and_zero_steps():
        dtype_name=st.sampled_from(["float32", "float64"]),
        dyn_type=st.sampled_from(["bbm", "evp", "mevp"]),
        tile=st.one_of(st.none(), st.tuples(st.integers(1, 300), st.integers(1, 300))),
-       k=st.one_of(st.none(), st.integers(1, 12)))
-def test_launch_plan_properties(ny, nx, steps, dtype_name, dyn_type, tile, k):
+       k=st.one_of(st.none(), st.integers(1, 12)), members=st.integers(1, 16))
+def test_launch_plan_properties(ny, nx, steps, dtype_name, dyn_type, tile, k, members):
     dtype = DTYPES[dtype_name]
-    plan = momentum_cuda.launch_plan(ny, nx, steps, dtype, dyn_type, tile=tile, k=k)
+    plan = momentum_cuda.launch_plan(ny, nx, steps, dtype, dyn_type, tile=tile, k=k, members=members)
+    assert plan.members == members
     # shared memory: the box of every plane the rheology keeps, within the limit
     assert plan.n_planes == len(momentum_cuda.tile_planes(dyn_type))
     assert plan.smem_bytes == ((plan.tile_h + 2 * plan.k) * (plan.tile_w + 2 * plan.k)
@@ -298,3 +316,130 @@ def test_blocked_reference_matches_pallas_interpret(monkeypatch):
     )
     for name, r, o in zip(CARRY, ref, out):
         assert_close(r, o, RTOL_F32, name)
+
+
+# ---------------------------------------------------------------------------
+# members: the batched loop
+# ---------------------------------------------------------------------------
+
+def make_members(dyn_type, dtype_name, ny, nx, n=3):
+    """(consts, carry, sim, [(consts, carry) of each member]) of ``n``
+    members made from the seeds 0..n-1 by ``make_loop``: a plane that every
+    member has equal stays one shared 2-D plane, the others are stacked on
+    a member axis, as ``Simulator.batched_step_fn`` hands them on."""
+    loops = [make_loop(dyn_type, dtype_name, ny, nx, seed=m) for m in range(n)]
+    consts = {}
+    for name in vars(loops[0][0]):
+        vals = [getattr(c, name) for c, _, _ in loops]
+        shared = not isinstance(vals[0], torch.Tensor) or all(torch.equal(v, vals[0]) for v in vals)
+        consts[name] = vals[0] if shared else torch.stack(vals)
+    carry = tuple(torch.stack(planes) for planes in zip(*(cr for _, cr, _ in loops)))
+    return SimpleNamespace(**consts), carry, loops[0][2], [(c, cr) for c, cr, _ in loops]
+
+
+@pytest.mark.parametrize("ny,nx,tile,k,steps", [PLANS[1], PLANS[3], PLANS[6]])
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+@pytest.mark.parametrize("dyn_type", ["bbm", "evp", "mevp"])
+def test_batched_loop_equals_each_member_bitwise(dyn_type, dtype_name, ny, nx, tile, k, steps):
+    consts, carry, sim, singles = make_members(dyn_type, dtype_name, ny, nx)
+    shared = {n for n, v in vars(consts).items() if isinstance(v, torch.Tensor) and v.ndim == 2}
+    assert {"rlmass", "beta_cor_const"} <= shared and "vtm_u" not in shared
+    plan = momentum_cuda.launch_plan(ny, nx, steps, DTYPES[dtype_name], dyn_type, tile=tile, k=k, members=3)
+    assert plan.members == 3 and plan.blocks_y * plan.blocks_x > 1 or (ny, nx) == (9, 7)
+    blocked = run(momentum_cuda.substep_loop_blocked_reference, consts, carry, steps, sim, plan=plan)
+    plain = run(momentum_cuda.substep_loop_reference, consts, carry, steps, sim)
+    assert not torch.equal(plain[0][0], plain[0][1])  # the members differ
+    for m, (c, cr) in enumerate(singles):
+        ref = run(momentum_cuda.substep_loop_reference, c, cr, steps, sim)
+        for name, b, p, r in zip(CARRY, blocked, plain, ref):
+            assert b.shape == p.shape == (3,) + r.shape, name
+            assert torch.equal(p[m], r), f"member {m} {name}: max |diff| {float((p[m] - r).abs().max()):.3e}"
+            assert torch.equal(b[m], r), f"member {m} {name}: max |diff| {float((b[m] - r).abs().max()):.3e}"
+    with pytest.raises(ValueError, match="another loop"):  # a plan for one member
+        run(momentum_cuda.substep_loop_blocked_reference, consts, carry, steps, sim,
+            plan=momentum_cuda.launch_plan(ny, nx, steps, DTYPES[dtype_name], dyn_type, tile=tile, k=k))
+
+
+@pytest.mark.parametrize("members", [1, 2, 4, 12])
+@pytest.mark.parametrize("dtype_name", ["float32", "float64", "bfloat16"])
+def test_launch_plan_counts_every_members_tiles_in_its_rounds(dtype_name, members):
+    """A launch's blocks are N x the tiles: with N dividing the card's 132
+    SMs, the plan for N members is the one-member plan of a card of 132 / N
+    SMs; every plan fits the 232,448 bytes of shared memory a block may use
+    on an H100."""
+    dtype = DTYPES[dtype_name]
+    for n in (464, 608):
+        for dyn_type in ("bbm", "evp", "mevp"):
+            plan = momentum_cuda.launch_plan(n, n, 120, dtype, dyn_type, members=members)
+            assert plan.members == members
+            assert plan.smem_bytes <= momentum_cuda.SMEM_LIMIT == 232_448 and sum(plan.launches) == 120
+            one = momentum_cuda.launch_plan(n, n, 120, dtype, dyn_type, sms=momentum_cuda.H100_SMS // members)
+            assert (plan.tile_h, plan.tile_w, plan.k) == (one.tile_h, one.tile_w, one.k)
+            assert momentum_cuda.launches_for(120, n, n, dtype, dyn_type, members=members) == len(plan.launches)
+    with pytest.raises(ValueError, match="members"):
+        momentum_cuda.launch_plan(464, 464, 120, dtype, "bbm", members=0)
+
+
+def test_batched_loop_refuses_a_recorded_gradient():
+    """SubstepLoop takes one member: a batched loop whose gradient is
+    recorded raises, on the CPU as on the card, and takes no other route;
+    without a recorded gradient it runs."""
+    consts, carry, sim, _ = make_members("bbm", "float64", 9, 7, n=2)
+    tau = consts.tau_ax.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="batched loop"):
+        run(momentum_cuda.substep_loop, SimpleNamespace(**dict(vars(consts), tau_ax=tau)), carry, 3, sim)
+    with pytest.raises(ValueError, match="batched carry"):
+        run(momentum_cuda.substep_loop_checkpointed, consts, carry, 3, sim,
+            advance=momentum_cuda.substep_loop_reference)
+    with torch.no_grad():
+        out = run(momentum_cuda.substep_loop, SimpleNamespace(**dict(vars(consts), tau_ax=tau)), carry, 3, sim)
+    assert out[0].shape == carry[0].shape and not out[0].requires_grad
+
+
+def test_batched_blocked_reference_matches_vmapped_pallas_interpret(monkeypatch):
+    """``jax.vmap`` of the JAX ``explicit_solve`` with the blocked Pallas
+    kernel (interpret mode, 16-row blocks, as tests/test_momentum_pallas.py
+    runs it) over 2 members, member 1 with its own wind and velocity, against
+    the port's ``explicit_solve`` on the member-minor stack whose substep
+    loop is the batched blocked reference (tiles of 12 x 9 nodes, 2
+    substeps a launch): float32, 3 substeps, tight tier."""
+    j, p = make_pair("bbm", substeps=3)
+    # member 1: a stronger wind turned to the south-east and a smooth drift
+    # of its own; steps of 45 s, substeps of 15 s as tests/test_momentum_pallas.py's
+    # 300 s / 20 (DT's 100 s substeps are beyond the elastic waves' limit)
+    dt = 45.0
+    node = np.asarray(j.forcing.wind_u).shape
+    wind_u = (np.asarray(j.forcing.wind_u) * 1.3).astype(np.float32)
+    wind_v = np.full(node, -4.0, np.float32)
+    jj, ii = np.meshgrid(*(np.linspace(0.0, np.pi, n) for n in node), indexing="ij")
+    vt_u = (0.01 * np.sin(jj) * np.sin(ii) * np.asarray(j.ga["node_mask"])).astype(np.float32)
+    j_states = jax.tree.map(lambda a, b: jnp.stack([a, b]), j.state, j.state.replace(vt_u=jnp.asarray(vt_u)))
+    j_forcings = jax.tree.map(lambda a, b: jnp.stack([a, b]), j.forcing,
+                              j.forcing.replace(wind_u=jnp.asarray(wind_u), wind_v=jnp.asarray(wind_v)))
+    dyn = dataclasses.replace(j.dyn, substep_kernel="pallas", pallas_block_rows=16, pallas_group_substeps=8)
+    ref = jax.vmap(lambda s, f: jmom.explicit_solve(s, f, j.ga, dt, dyn)[0])(j_states, j_forcings)
+
+    states = p.state.replace(**{f.name: torch.stack([getattr(p.state, f.name)] * 2)
+                                for f in dataclasses.fields(p.state) if getattr(p.state, f.name) is not None})
+    states = states.replace(vt_u=torch.stack([p.state.vt_u, to_torch(vt_u)]))
+    forcing = stack_forcings([p.forcing, p.forcing.replace(wind_u=to_torch(wind_u), wind_v=to_torch(wind_v))])
+    assert forcing.wind_u.shape == (2,) + node and forcing.ocean_u.shape == node  # shared planes stay planes
+    ny, nx = (n - 1 for n in node)
+    plan = momentum_cuda.launch_plan(ny, nx, 3, torch.float32, "bbm", tile=(12, 9), k=2, members=2)
+    assert plan.launches == (2, 1) and plan.blocks_y * plan.blocks_x == 12
+    loops = []
+
+    def batched_loop(consts, carry, *args):
+        loops.append(carry[0].shape)
+        return momentum_cuda.substep_loop_blocked_reference(consts, carry, *args, plan=plan)
+
+    monkeypatch.setattr(momentum_cuda, "substep_loop", batched_loop)
+    out, _ = momentum.explicit_solve(member_minor(states), forcing, p.ga, dt, p.dyn)
+    assert loops == [(2,) + node]
+    assert not np.allclose(np.asarray(ref.vt_u[0]), np.asarray(ref.vt_u[1]))
+    assert float(jnp.abs(ref.vt_u).max()) < 1.0 and float(ref.damage.max()) > 0.0  # drift, damage grows
+    for m in range(2):
+        for name in FIELDS:
+            got = getattr(out, name)
+            assert_close(getattr(ref, name)[m], got[:, m] if name == "sigma" else got[m], RTOL_F32,
+                         f"member {m} {name}")
