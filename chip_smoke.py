@@ -75,7 +75,13 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    broken zone, the bins summing to conc + conc_young within 1e-5, area
    below the last bin where the WIM broke floes, dmax and tauwix in the
    moorings file, the spectrum and the bins in the restart; ms/step beside
-   phase 11's, and each WIM exchange's wall and device time;
+   phase 11's, and each WIM exchange's wall and device time; the run's
+   chunks are graph replays (Roach welding is one kernel launch, nothing
+   read back), one welding launch a step. At the phase's end (after 16):
+   a 20-step chunk between WIM exchanges from one state, ``step_chunk_eager``
+   and ``step_chunk`` (one graph replay) in turns, bitwise equal; ms/step
+   of each, the graph's nodes, capture and instantiation seconds, pool,
+   and both kernels' launches a replay;
 15. the kernel against its plain version on the phase-14 state, the wave
    stress non-zero on the nodes: bitwise in float32 and float64;
 16. float64 on the card against the CPU (1e-12 of each field's magnitude):
@@ -83,14 +89,25 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    cell of the phase-14 fields) and one FSD block at 608^2; then wall time,
    device time and launches of one welding_roach (with the run's freezing
    mask and with every cell freezing), one FSD block, one WIM exchange and
-   one model step under torch.profiler, and the time of an exchange with 3
-   and with 25 frequencies a block, in turns;
+   one eager model step under torch.profiler, and the time of an exchange
+   with 3 and with 25 frequencies a block, in turns; then the welding
+   kernel (csrc/welding_roach.cu) against ``welding_roach_reference``,
+   bitwise (NaN in the same places), in float32, float64 and bfloat16, on
+   the phase-14 state with the step's own freezing mask, with every cell
+   freezing (every active cell to the cap of 256 substeps) and with broken
+   floes spread from a numpy seed under the own mask: active cells, the
+   kernel's CUDA-event time in one launch, its bound and the plain
+   version's time of each;
 17. the coupled run: the same configuration with ``coupler.with_waves`` on a
    260x260 exchange grid and a prescribed ``cpl_in.nc`` (wlbk, tauwix,
-   tauwiy), through ``Simulator.run`` on the default device for 21 steps;
-   the two put files hold the 10-step means that the device accumulated
-   (held against means taken step by step on the host, remapped and
-   rotated), and the received wlbk breaks floes;
+   tauwiy), through ``Simulator.run`` on the default device for 21 steps
+   in captured chunks of the shipped ``tpu.steps_per_call`` as ``run``
+   clamps it (2 steps; Roach welding no longer keeps it eager), the
+   last step one replay of the one-step graph; each call of the program is
+   run again eagerly from its inputs and must equal it bitwise (state,
+   diag, the coupler's sums); the two put files hold the 10-step means
+   that the device accumulated (held against the host's means of the eager
+   steps, remapped and rotated), and the received wlbk breaks floes;
 18. ``python -m nextsim_tpu_torch.wim --device cuda`` with its defaults, as a
    subprocess, and its summary line;
 19. the ensemble at full width: ``BatchedEnsemble`` on phase 11's
@@ -107,7 +124,14 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    (median, min, max) beside phase 11's, the graph's nodes, capture and
    instantiation seconds and pool, and the member loop's step under
    torch.profiler (launches, device busy, idle share; the batched step's
-   replay is profiled at the end of phase 29);
+   replay is profiled at the end of phase 29); then the welding ensemble:
+   4 members of phase 19's configuration with phase 14's FSD (20 bins,
+   Roach welding on scaled areas, melt_type 3) on phase 14's last state
+   with broken floes spread from numpy, 3 steps, the batched replay and
+   ``step_members`` in turns, every member bitwise equal after every step,
+   welding's active cells printed (> 0); one welding launch on its
+   member-minor stack equals four single launches bitwise, timed in turns,
+   and the plain version bitwise in float32, float64 and bfloat16;
 19b. the batched launch on phase 19's 608^2 x 4 state: against the 4
    single-member launches and the plain loop on the card, bitwise, for
    bbm, evp and mevp in float32, float64 and bfloat16 over 11 substeps; a
@@ -129,10 +153,11 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    recompute with the plain body backward) against straight autograd
    through the plain loop on the card in float32 and float64, a
    directional finite difference in float64 and a 2-step rollout; ms,
-   kernel launches, device busy and peak memory of each;
+   kernel launches and peak memory of each, and device busy of each but
+   the rollout;
 24. a device mesh: 4 ranks of a 2x2 mesh spawned on the card (gloo with the
    strips staged through pinned host memory when they share one card, NCCL
-   when each has its own): phase 8's 464^2 thermo-on configuration for 6
+   when each has its own): phase 8's 464^2 thermo-on configuration for 4
    steps, bbm and evp at tpu.halo_depth 1 and 6, the gathered state
    bitwise equal to the single-device Simulator; the kernel on rank 0's
    ext block against the plain loop (bitwise); 1216^2 at 5 km, thermo on,
@@ -151,8 +176,9 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    step-20 state against the plain loop; ms/step between exchanges, seconds
    a WIM exchange, the WIM's ring bytes and ``Seam.seconds`` by rank;
 26. the member mesh: phase 19's configuration, 4 members on the layouts (4,)
-   (a batched step of one member a rank) and (2, 1, 2) (the member loop on
-   1x2 blocks a group) (4 ranks each), 3 steps, every member bitwise equal
+   (a batched step of one member a rank) and (2, 1, 2) (the batched step of
+   two members on 1x2 blocks a group: one loop of substep launches a step,
+   not one a member) (4 ranks each), 3 steps, every member bitwise equal
    to phase 19's single-device ensemble after 3 steps; the (4,) checkpoint
    read by phase 19's ensemble equals it, and one more (batched) step stays
    equal;
@@ -160,8 +186,9 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    ``raw_step_fn`` on a 2x2 mesh, H = 6, float32 and float64, each rank's
    loss on its own nodes and ``Seam.fold`` for the global gradient, against
    phase 23's single-device gradient (relative L2 within MESH_GRAD_REL_L2);
-   ms, kernels and peak memory by rank. Times of ranks that share one card
-   are no scaling numbers;
+   ms, substep launches and peak memory by rank, and the float32
+   gradient's kernels and device busy by rank. Times of ranks that share
+   one card are no scaling numbers;
 28. bfloat16 (``tpu.dtype=bfloat16``): the plan of the kernel's bfloat16
    build at 464^2 and ptxas' registers; the kernel against the plain
    bfloat16 loop on the card over 120 substeps on phase 3's 464^2 state
@@ -186,14 +213,22 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    share); then ``python -m nextsim_tpu_torch.bench`` as a subprocess and
    its line.
 
-The line before the last is the JSON record of the kernel (its launches
-summed over the paths of phases 5 (the eager first call and the replay,
-``main_graph``), 8, 11, 14, 17, 19 (the batched steps ``ensemble_batched``,
-the member loop ``ensemble``), 22, 23, 24, 25, 26, 27 and 28 (the mesh
-paths summed over their ranks), each counted from zero, none of them zero;
+The line before the last is the JSON record of the two kernels. The
+substep kernel: its launches summed over the paths of phases 5 (the eager
+first call and the replay, ``main_graph``), 8, 11, 14 (and its captured
+chunk, ``wave_graph``), 17, 19 (the batched steps ``ensemble_batched``, the
+member loop ``ensemble``, the welding ensemble's batched steps
+``ensemble_welding``), 22, 23, 24, 25, 26, 27 and 28 (the mesh paths summed
+over their ranks), each counted from zero, none of them zero;
 ``bf16_bitwise`` by rheology and the bfloat16 loop's times; phase 29's
-numbers under ``captured``; phase 19's under ``ensemble_608x4`` and phase
-19b's under ``batched_608x4``); the last line is
+numbers under ``captured``; phase 19's under ``ensemble_608x4``, phase
+19b's under ``batched_608x4``, phase 14's captured chunk under
+``wave_captured``. The welding kernel: its launches on the paths that weld
+(``WELDING_PATHS``: phases 14, its captured chunk, 17, 19's welding
+ensemble and 25), none of them zero, and the paths that do not weld named;
+its time, bound and the plain version's time with every cell freezing in
+float32 (phase 16), every case under ``by_case``, the welding ensemble
+under ``ensemble_welding_608x4``. The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1118,11 +1153,10 @@ def write_coupler_files(grid_file: Path, cpl_dir: Path):
     return plat.shape
 
 
-def profiled(fn, top=0, host_events=True):
+def profiled(fn, host_events=True):
     """(host wall s, device busy ms, launches) of one synchronized call of
     ``fn`` under torch.profiler; the wall time includes the profiler's cost.
-    With ``top``, also the names, device ms and counts of the ``top`` entries
-    that took most device time. ``host_events=False`` records the card's
+    ``host_events=False`` records the card's
     side only: a call of 200,000 launches then takes the profiler seconds to
     digest, not a minute; launches are counted from the launch calls where
     the trace has them and from the kernels otherwise."""
@@ -1149,10 +1183,6 @@ def profiled(fn, top=0, host_events=True):
     if busy <= 0.0 or launches == 0:
         raise AssertionError(f"torch.profiler recorded no device activity ({len(ka)} entries, "
                              f"{len(on_card)} on the card: {[e.key[:40] for e in on_card[:5]]})")
-    if top:
-        first = sorted(on_card, key=lambda e: -e.self_device_time_total)[:top]
-        return wall, busy, launches, "; ".join(
-            f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms in {e.count}" for e in first)
     return wall, busy, launches
 
 
@@ -1335,8 +1365,10 @@ def wave_cli_run(tmp: Path, out: Path, smi: str, dataset_ms: float):
 
 def wave_timings(sim, smi):
     """Wall time, device time and launches of one welding_roach, one FSD
-    block, one WIM exchange and one model step on the phase-14 state, under
-    torch.profiler."""
+    block and one model step on the phase-14 state, under torch.profiler;
+    one WIM exchange under each of two frequency-block budgets between CUDA
+    events (an exchange under the profiler, 200,821 launches, took 37-55 s
+    of the run and is no longer made)."""
     import torch
 
     from nextsim_tpu_torch.ops import fsd as fsd_ops
@@ -1376,29 +1408,26 @@ def wave_timings(sim, smi):
         raise AssertionError(f"FSD block: {block[2]} launches and {block[1]:.2f} ms of device time in the whole trace, "
                              f"{lean[2]} and {lean[1]:.2f} ms from the card's side alone")
     lap("welding and FSD block")
-    *wim, top = profiled(lambda: sim._wim_exchange(forcing), top=6, host_events=False)
-    lap("profiled exchange")
     # the frequencies of a spectral step go in blocks whose temporaries fit a
     # memory budget (2 GiB: 3 frequencies here); beside it all 25 in one
-    # block (a budget of 16 GiB), in turns
+    # block (a budget of 16 GiB), once each
     from nextsim_tpu_torch.wim import wim as wim_mod
 
     budget, blocks, block_ms = wim_mod._BLOCK_BYTES, {}, {"2 GiB": [], "16 GiB": []}
     try:
-        for _ in range(2):
-            for name, nbytes in (("16 GiB", 16 << 30), ("2 GiB", budget)):
-                wim_mod._BLOCK_BYTES = nbytes
-                blocks[name] = wim_mod._freq_block(sim.wim.sdf)
-                block_ms[name].append(timed_call(lambda: sim._wim_exchange(forcing))[2])
+        for name, nbytes in (("16 GiB", 16 << 30), ("2 GiB", budget)):
+            wim_mod._BLOCK_BYTES = nbytes
+            blocks[name] = wim_mod._freq_block(sim.wim.sdf)
+            block_ms[name].append(timed_call(lambda: sim._wim_exchange(forcing))[2])
     finally:
         wim_mod._BLOCK_BYTES = budget
     if budget != 2 << 30 or not blocks["16 GiB"] > blocks["2 GiB"]:
         raise AssertionError(f"WIM frequency blocks: {blocks} with a budget of {budget} bytes")
-    lap("4 exchanges")
+    lap("2 exchanges")
     if sim.pcpt % sim.wim_couplingfreq == 0:
         raise AssertionError(f"wave path: step {sim.pcpt} would run an exchange inside the step's profile")
-    sim.step_chunk(1)  # warm
-    step = profiled(lambda: sim.step_chunk(1))
+    sim.step_chunk_eager(1)  # warm
+    step = profiled(lambda: sim.step_chunk_eager(1))
     lap("2 steps")
     fmt = lambda r: f"{r[0]:.3f} s wall, {r[1]:.1f} ms device, {r[2]} launches"  # noqa: E731
     phase("waves", f"on the phase-14 state, one call each under torch.profiler (its cost is in the wall time): "
@@ -1406,13 +1435,13 @@ def wave_timings(sim, smi):
           f"welding_roach with every cell freezing ({int(active_all.sum())} active cells, loop to the cap of "
           f"{fsd_ops.WELDING_NDT_MAX} substeps): {fmt(weld_all)}; "
           f"the FSD block of a step (rescale, welding, breakup, damage, diagnostics): {fmt(block)}; "
-          f"one WIM exchange (medium, {int(np.ceil(sim.wim_couplingfreq * sim.dt / sim.wim.dt_cfl))} spectral steps, "
-          f"breaking, stress to nodes): {fmt(wim)}; one model step between two exchanges (forcing, thermo, FSD block, "
-          f"momentum, transport of 40 more planes): {fmt(step)}; one WIM exchange between CUDA events, no profiler, "
-          f"with {blocks['2 GiB']} frequencies a block (the module's 2 GiB of temporaries): "
-          f"{[round(ms, 1) for ms in block_ms['2 GiB']]} ms, with {blocks['16 GiB']} a block (16 GiB): "
-          f"{[round(ms, 1) for ms in block_ms['16 GiB']]} ms (in turns, the larger first); "
-          f"the exchange's kernels by device time: {top}; seconds these measurements took: {took}; {smi}")
+          f"one model step between two exchanges (forcing, thermo, FSD block, momentum, transport of 40 more planes; "
+          f"eager): {fmt(step)}; one WIM exchange (medium, "
+          f"{int(np.ceil(sim.wim_couplingfreq * sim.dt / sim.wim.dt_cfl))} spectral steps, breaking, stress to nodes) "
+          f"between CUDA events, no profiler, with {blocks['2 GiB']} frequencies a block (the module's 2 GiB of "
+          f"temporaries): {[round(ms, 1) for ms in block_ms['2 GiB']]} ms, with {blocks['16 GiB']} a block (16 GiB): "
+          f"{[round(ms, 1) for ms in block_ms['16 GiB']]} ms (the larger first); "
+          f"seconds these measurements took: {took}; {smi}")
 
 
 def wave_kernel_vs_plain(sim):
@@ -1442,6 +1471,180 @@ def wave_kernel_vs_plain(sim):
     phase("waves", f"kernel vs plain on the phase-14 state: wave stress non-zero on {n_tau} nodes and in the kernel's "
           f"forcing term; max |dvel| f32 {errs[('float32', 120)]:.3e}, f64 {errs[('float64', 120)]:.3e} over 120 substeps")
     return errs[("float32", 120)]
+
+
+WELDING_DTYPES = ("float32", "float64", "bfloat16")
+# the paths that weld, and what each is: the wave path through the CLI
+# (phase 14, its chunks captured), its 20-step chunk in turns with the eager
+# loop (phase 14's end), the coupled run (phase 17), the batched welding
+# ensemble (phase 19), the wave path on a 2x2 mesh (phase 25, summed over
+# the ranks)
+WELDING_PATHS = {"wave": "phase 14", "wave_graph": "phase 14, the captured chunk", "coupled": "phase 17",
+                 "ensemble_welding": "phase 19", "mesh_waves": "phase 25"}
+# operations of one cell and substep that the welding function needs: the
+# suffix sums (nbins), the lead terms (2 nbins), one division for each merge
+# bin (the pair's width is its merge bin's), 4 for each pair whose merge bin
+# is defined (times the offset, plus the suffix sum, times the lead, into
+# coag; an undefined one adds zero), the update (4 nbins)
+def welding_ops(bins, nbins: int) -> int:
+    from nextsim_tpu_torch.ops.fsd import welding_pairs
+
+    merge, _, _, valid = welding_pairs(bins, nbins)
+    defined = [a for a, ok in zip(merge, valid) if ok]
+    return 7 * nbins + len(set(defined)) + 4 * len(defined)
+
+
+def welding_bound_ms(cf, freezing, dt: float, p, bins):
+    """The least time an H100 could take for one welding call on this
+    stack: (bound_ms, "bytes" or "operations", bytes_ms, operations_ms,
+    active cells). Bytes: the stack read and written once and the mask read
+    once (the two sums follow from the stack). Operations: ``welding_ops``
+    for every substep that an active cell runs (its own count, from this
+    call's data), at the float64 rate for float64, the float32 rate for
+    float32 and the bfloat16 rate for bfloat16 (every operation of a substep
+    has bfloat16 operands there)."""
+    import torch
+
+    from nextsim_tpu_torch.ops.fsd import WELDING_NDT_MAX
+
+    ctot, c_broken = cf.sum(0).double(), cf[:-1].sum(0).double()
+    active = freezing & (c_broken > 0.01) & (ctot > 0.1)
+    ndt = torch.clamp(torch.ceil(dt * p.welding_kappa * ctot * float(bins.scaled_up[-1]) + 0.5), 1, WELDING_NDT_MAX)
+    substeps = float(ndt[active].sum())
+    n_bytes = 2 * cf.numel() * cf.element_size() + freezing.numel()
+    rate = {torch.float64: H100_F64_OPS_PER_S, torch.bfloat16: H100_BF16_OPS_PER_S}.get(cf.dtype, H100_F32_OPS_PER_S)
+    ops_ms = 1e3 * substeps * welding_ops(bins, p.num_bins) / rate
+    bytes_ms = 1e3 * n_bytes / H100_BYTES_PER_S
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms > ops_ms else "operations"), bytes_ms, ops_ms, int(active.sum())
+
+
+def same_bits(a, b) -> bool:
+    """Equal values, and NaN in the same places."""
+    import torch
+
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a.masked_fill(nan, 0), b.masked_fill(nan, 0))
+
+
+def welding_kernel_phase(sim, smi) -> dict:
+    """Phase 16's welding: the kernel (csrc/welding_roach.cu) against
+    ``welding_roach_reference`` on the phase-14 608^2 x 20-bin state,
+    bitwise, in float32, float64 and bfloat16, with the step's own freezing
+    mask, with every cell freezing (every active cell to the cap of 256
+    substeps), and with broken floes spread from a numpy seed over every
+    ice cell under the step's own mask (the run breaks floes at the ice
+    edge, where the ice melts: its own mask meets few broken cells or none);
+    each the kernel's CUDA-event time, launches and bound beside the plain
+    version's time. Returns the float32 every-cell record for the JSON."""
+    import torch
+
+    from nextsim_tpu_torch.ops import fsd as fsd_ops
+    from nextsim_tpu_torch.ops import welding_cuda
+
+    st = sim.state
+    ctot = st.conc + st.conc_young
+    cf = fsd_ops.update_fsd(st.conc_fsd, ctot)
+    own = sim.diag["del_hi"] > 0.0
+    w = torch.as_tensor(np.random.default_rng(16).uniform(0.0, 1.0, tuple(cf.shape)), dtype=cf.dtype, device="cuda")
+    spread = w / w.sum(0) * cf.sum(0)
+    cases = {"own mask": (cf, own), "every cell freezing": (cf, torch.ones_like(own)),
+             "spread floes, own mask": (spread, own)}
+    fp, fb = sim.fsd_params, sim.fsd_bins
+    recs, lines = {}, []
+    for label, (stack, freezing) in cases.items():
+        for dtype_name in WELDING_DTYPES:
+            x = stack.to(getattr(torch, dtype_name)).contiguous()
+            launches = welding_cuda.launches
+            out = fsd_ops.welding_roach(x, sim.dt, fp, fb, freezing)
+            if welding_cuda.launches != launches + 1:
+                raise AssertionError(f"welding {label} {dtype_name}: {welding_cuda.launches - launches} launches")
+            ref, plain_wall, plain_ms = timed_call(lambda: fsd_ops.welding_roach_reference(x, sim.dt, fp, fb, freezing))
+            bound_ms, bound_by, bytes_ms, ops_ms, active = welding_bound_ms(x, freezing, sim.dt, fp, fb)
+            if not same_bits(out, ref):
+                bad = int((out != ref).sum())
+                raise AssertionError(f"welding {label} {dtype_name}: the kernel differs from the plain version in {bad} "
+                                     f"values ({active} active cells)")
+            err = float((out.double() - ref.double()).nan_to_num(0.0, 0.0, 0.0).abs().max())
+            ms = event_ms(lambda: fsd_ops.welding_roach(x, sim.dt, fp, fb, freezing), reps=5)
+            recs[(label, dtype_name)] = {"ms": ms, "plain_ms": plain_ms, "plain_wall_s": plain_wall, "max_abs_err": err,
+                                         "bound_ms": bound_ms, "bound_by": bound_by, "active": active,
+                                         "changed": not torch.equal(out, x)}
+            lines.append(f"{label} {dtype_name}: {active} active cells, kernel {ms:.4f} ms in 1 launch, plain "
+                         f"{plain_ms:.1f} ms; bound {bound_ms:.4f} ms by {bound_by} (bytes {bytes_ms:.4f}, "
+                         f"operations {ops_ms:.4f}), {100 * bound_ms / ms:.1f}% of it")
+    for label in ("every cell freezing", "spread floes, own mask"):
+        if recs[(label, "float32")]["active"] == 0 or not recs[(label, "float32")]["changed"]:
+            raise AssertionError(f"welding {label}: no active cell, or nothing welded")
+    phase("welding", f"the welding kernel against the plain version on the phase-14 608^2 x {fp.num_bins}-bin state, "
+          f"bitwise in every dtype and case (NaN in the same places): {'; '.join(lines)}; {smi}")
+    rec = dict(recs[("every cell freezing", "float32")])
+    rec["by_case"] = {f"{label}, {d}": r for (label, d), r in recs.items()}
+    return rec
+
+
+WAVE_CHUNK = 20  # a coupling window: the captured chunk between two WIM exchanges
+
+
+def wave_captured(sim, smi) -> dict:
+    """Phase 14's end: the wave path's Simulator (no eager reason now), one
+    WAVE_CHUNK-step chunk between WIM exchanges from one state, in turns:
+    ``step_chunk_eager`` (the oracle), ``step_chunk`` (its first call runs
+    the program eagerly and captures it), then captured, eager; every
+    result bitwise equal to the first eager one; ms/step of the second call
+    of each (host wall, synchronized), the graph's nodes, capture and
+    instantiation seconds, pool, and both kernels' launches a replay."""
+    import torch
+
+    from nextsim_tpu_torch.ops import momentum_cuda, welding_cuda
+
+    if sim.eager_reason is not None:
+        raise AssertionError(f"wave path: still eager: {sim.eager_reason}")
+    k = WAVE_CHUNK
+    state0, pcpt0, last0 = sim.state, sim.pcpt, sim._wim_last_pcpt
+    if last0 is None or pcpt0 - last0 >= sim.wim_couplingfreq:
+        raise AssertionError(f"wave path: a chunk from step {pcpt0} would start with a WIM exchange")
+
+    def run(mode):
+        sim.state, sim.pcpt, sim._wim_last_pcpt, sim._pending_viol = state0, pcpt0, last0, None
+        sync()
+        counts = (momentum_cuda.launches, welding_cuda.launches)
+        t0 = time.perf_counter()
+        (sim.step_chunk if mode == "captured" else sim.step_chunk_eager)(k)
+        sync()
+        return (time.perf_counter() - t0, sim.state,
+                (momentum_cuda.launches - counts[0], welding_cuda.launches - counts[1]))
+
+    _, ref, _ = run("eager")
+    first_s, got, _ = run("captured")
+    stats = dict(sim._program.stats)
+    walls, outs, replay = {"eager": [], "captured": []}, [got], None
+    for mode in ("captured", "eager"):
+        wall, out, launches = run(mode)
+        walls[mode].append(wall)
+        outs.append(out)
+        if mode == "captured":
+            replay = launches
+    for n, out in enumerate(outs):
+        for f in ref.__dataclass_fields__:
+            a, b = getattr(ref, f), getattr(out, f)
+            if a is not None and not torch.equal(a, b):
+                raise AssertionError(f"wave path: run {n}: {f} of the captured chunk is not the eager loop's bitwise")
+    per_loop = momentum_cuda.launches_for(sim.dyn.substeps, *sim.grid.shape)
+    if replay != (k * per_loop, k) or (stats["kernel_launches"], stats["welding_launches"]) != replay:
+        raise AssertionError(f"wave path: a replay launched {replay}, its graph holds {stats}")
+    ms = {mode: 1e3 * min(w) / k for mode, w in walls.items()}
+    phase("waves", f"the wave path captured: {k}-step chunks between WIM exchanges from step {pcpt0}, in turns "
+          f"eager, captured, captured, eager: eager {ms['eager']:.2f} ms/step "
+          f"({[round(1e3 * w / k, 2) for w in walls['eager']]}), captured {ms['captured']:.2f} ms/step "
+          f"({[round(1e3 * w / k, 2) for w in walls['captured']]}; host wall, synchronized); the graph: "
+          f"{stats['nodes']} nodes, capture {stats['capture_s']:.2f} s, instantiation {stats['instantiate_s']:.2f} s, "
+          f"pool {stats['pool_bytes'] / 2**20:.1f} MiB; a replay launches the substep kernel {replay[0]} times and the "
+          f"welding kernel {replay[1]} times; first call (eager warm-up + capture) {first_s:.2f} s; bitwise equal to "
+          f"the eager loop in {len(outs)} runs; {smi}")
+    sim.state, sim.pcpt, sim._wim_last_pcpt = state0, pcpt0, last0
+    return {"ms_eager": ms["eager"], "ms_captured": ms["captured"], "walls": walls, "first_call_s": first_s,
+            "replay_launches": replay[0], "replay_welding_launches": replay[1],
+            **{key: stats[key] for key in ("nodes", "capture_s", "instantiate_s", "pool_bytes")}}
 
 
 def _worst_rel(got: dict, ref: dict, what: str, limit=1e-12) -> float:
@@ -1509,15 +1712,23 @@ def waves_vs_cpu(sim, smi):
 
 def coupled_run(tmp: Path, out: Path, smi: str):
     """Phase 17: the coupled run (``coupler.with_waves``), through
-    ``Simulator.run``: the put files hold the window means that the device
-    accumulated, and the received wlbk breaks floes. Returns the kernel's
-    launches."""
+    ``Simulator.run`` in chunks of the configuration's
+    ``tpu.steps_per_call`` as ``run`` clamps it (10 -> 2: it divides the
+    10-step coupler window and the 432-step snapshot interval), each one
+    replay of the captured chunk program (the last step one of the step
+    program):
+    every call of the program is run again eagerly (``_chunk_body``) from
+    the same inputs and must equal it bitwise, state, diag and the
+    coupler's sums included; the put files hold the window means that the
+    device accumulated, against the host's means of the eager steps; the
+    received wlbk breaks floes. Returns the kernel's launches."""
     import torch
 
     from nextsim_tpu_torch import Config, Simulator
     from nextsim_tpu_torch.coupling.exchange import Coupler
     from nextsim_tpu_torch.forcing.netcdf_io import NCFile
-    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.model.captured import flatten
+    from nextsim_tpu_torch.ops import momentum_cuda, welding_cuda
 
     eg_shape = write_coupler_files(tmp / "exchange_grid.nc", out / "coupler")
     over = {k: v for k, v in (a.split("=", 1) for a in DATASET_ARGS)}
@@ -1527,41 +1738,64 @@ def coupled_run(tmp: Path, out: Path, smi: str):
         "coupler.with_waves": "true", "coupler.timestep": 2000, "coupler.exchange_grid_file": str(tmp / "exchange_grid.nc"),
         "wave_coupling.num_fsd_bins": 20, "wave_coupling.welding_type": "roach", "wave_coupling.fsd_damage_type": 1,
         "thermo.melt_type": 3, "moorings.use_moorings": "false", "drifters.use_equally_spaced_drifters": "false",
-        "tpu.steps_per_call": 5,
     })
     cfg = Config.from_files(str(ROOT / "configs" / "arctic_10km.cfg"), overrides=over)
     sim = Simulator(cfg)  # the default device: the card
     if sim.device.type != "cuda" or sim.coupler is None or sim.coupler.exchange_grid is None:
         raise AssertionError("coupled run: not on the card, or no coupler on the exchange grid")
 
-    # a mean taken step by step on the host, beside the device's sums
-    host = {"sum": {}, "n": 0, "means": []}
-    accumulate, write_put = Coupler.accumulate, Coupler._write_put
+    # each call of the program run again eagerly from its inputs; the eager
+    # steps' sent fields summed on the host, beside the device's sums
+    host = {"sum": {}, "n": 0, "means": [], "replays": []}
+    program, extract, write_put = sim._program, sim._extract, Coupler._write_put
 
-    def accumulate_both(self, state, diag):
-        accumulate(self, state, diag)
+    def extract_to_host(state, diag, forcing):
         for name, t in (("conc", state.conc), ("taux", diag["tau_wx"]), ("tauy", diag["tau_wy"])):
             host["sum"][name] = host["sum"].get(name, 0.0) + t.cpu().numpy().astype(np.float64)
         host["n"] += 1
+        return extract(state, diag, forcing)
+
+    def checked_program(*args):
+        graphs = len(program.graphs)
+        got = program(*args)
+        counts = (momentum_cuda.launches, welding_cuda.launches)  # the eager run is the check's, not the path's
+        sim._extract = extract_to_host
+        try:
+            with torch.no_grad():
+                want = sim._chunk_body(*args)
+        finally:
+            sim._extract = extract
+        momentum_cuda.launches, welding_cuda.launches = counts
+        (gl, gd), (wl, wd) = flatten(got), flatten(want)
+        if gd != wd or not all(same_bits(x, y) for x, y in zip(gl, wl)):
+            raise AssertionError(f"coupled run: a {len(args[1])}-step program call differs from its eager body")
+        if len(program.graphs) == graphs:
+            host["replays"].append(len(args[1]))
+        return got
 
     def write_put_and_close(self, tag):
         write_put(self, tag)
         host["means"].append((tag, {k: v / host["n"] for k, v in host["sum"].items()}, host["n"]))
         host["sum"], host["n"] = {}, 0
 
-    Coupler.accumulate, Coupler._write_put = accumulate_both, write_put_and_close
+    sim._program, Coupler._write_put = checked_program, write_put_and_close
     momentum_cuda.launches = 0
     t0 = time.perf_counter()
     try:
         sim.run()
         sync()
     finally:
-        Coupler.accumulate, Coupler._write_put = accumulate, write_put
+        sim._program, Coupler._write_put = program, write_put
     wall = time.perf_counter() - t0
+    k = sim._chunk_k
+    if sim.eager_reason is not None or k < 2 or k not in host["replays"]:
+        raise AssertionError(f"coupled run: no replay of a multi-step chunk ({sim.eager_reason}, {k} steps a call, "
+                             f"replays {host['replays']})")
     launches = momentum_cuda.launches
     expect = momentum_cuda.launches_for(sim.dyn.substeps, *sim.grid.shape) * COUPLED_STEPS
-    if sim.pcpt != COUPLED_STEPS or launches != expect:
-        raise AssertionError(f"coupled run: {sim.pcpt} steps, {launches} kernel launches, expected {expect}")
+    if sim.pcpt != COUPLED_STEPS or launches != expect or welding_cuda.launches != COUPLED_STEPS:
+        raise AssertionError(f"coupled run: {sim.pcpt} steps, {launches} kernel launches, expected {expect}, "
+                             f"{welding_cuda.launches} welding launches")
     _finite_state(sim.state, "coupled run")
     puts = sorted((out / "coupler").glob("cpl_out_*.nc"))
     if len(puts) != 2 or len(host["means"]) != 2:
@@ -1604,9 +1838,11 @@ def coupled_run(tmp: Path, out: Path, smi: str):
     if closure > 1e-5:
         raise AssertionError(f"coupled run: |sum of bins - ctot| {closure:.3e}")
     phase("coupled", f"arctic_10km.cfg 608^2, coupler.with_waves on a {eg_shape[0]}x{eg_shape[1]} exchange grid with a prescribed "
-          f"cpl_in.nc (wlbk, tauwix, tauwiy), 20 FSD bins, Simulator.run on the default device: {COUPLED_STEPS} steps in "
-          f"{wall:.1f} s, {launches} kernel launches; 2 puts of 10-step means (conc, taux, tauy remapped and rotated) "
-          f"equal the host's step-by-step means within {worst:.1e} (limit 1e-6 of the field); received wlbk < 300 m on "
+          f"cpl_in.nc (wlbk, tauwix, tauwiy), 20 FSD bins, Simulator.run on the default device in {k}-step "
+          f"chunks (tpu.steps_per_call {cfg['tpu.steps_per_call']}, clamped): {COUPLED_STEPS} steps in {wall:.1f} s (each program call run again eagerly, included), {launches} "
+          f"kernel launches; graph replays of {host['replays']} steps, every program call bitwise its eager body "
+          f"(state, diag, the coupler's sums); 2 puts of 10-step means (conc, taux, tauy remapped and rotated) "
+          f"equal the host's means of the eager steps within {worst:.1e} (limit 1e-6 of the field); received wlbk < 300 m on "
           f"{int(breaking.sum())} ice cells, {frac:.3f} of them with area below the last bin, most broken area where "
           f"no breaking waves were received {leaked:.2e}; zero violations; {smi}")
     return launches
@@ -1630,18 +1866,35 @@ def standalone_wim(tmp: Path, smi: str):
           f"{time.perf_counter() - t0:.1f} s with the process's start: {json.dumps(summary)}; {int(broken.sum())} broken cells; {smi}")
 
 
-def wave_phases(tmp: Path, smi: str, dataset_ms: float, path_launches: dict) -> float:
+def wave_phases(tmp: Path, smi: str, dataset_ms: float, path_launches: dict, weld_launches: dict):
     """Phases 14-17 (NEXTSIM_DATA_DIR set, the wave file written): the wave
-    path through the CLI, the kernel on its state, card against CPU, the
-    timings, the coupled run. Adds the kernel's launches of the two paths to
-    ``path_launches`` and returns the kernel's error on the wave state."""
+    path through the CLI, its captured chunk, the kernel on its state, card
+    against CPU, the timings, the welding kernel, the coupled run. Adds the
+    substep kernel's launches of the paths to ``path_launches`` and the
+    welding kernel's to ``weld_launches``; returns (the substep kernel's
+    error on the wave state, the welding record, the captured wave record,
+    the wave state as host arrays)."""
+    from nextsim_tpu_torch import state_to_numpy
+    from nextsim_tpu_torch.ops import momentum_cuda, welding_cuda
+
+    welding_cuda.launches = 0
     sim, path_launches["waves"] = wave_cli_run(tmp, tmp / "wave_run", smi, dataset_ms)
+    weld_launches["wave"] = welding_cuda.launches
+    if weld_launches["wave"] != WAVE_STEPS:
+        raise AssertionError(f"wave path: {weld_launches['wave']} welding launches in {WAVE_STEPS} steps")
     wave_err = wave_kernel_vs_plain(sim)
     waves_vs_cpu(sim, smi)
     wave_timings(sim, smi)
+    weld_rec = welding_kernel_phase(sim, smi)
+    momentum_cuda.launches = welding_cuda.launches = 0
+    wave_rec = wave_captured(sim, smi)
+    path_launches["wave_graph"], weld_launches["wave_graph"] = momentum_cuda.launches, welding_cuda.launches
+    wave_state = state_to_numpy(sim.state)
     del sim
+    welding_cuda.launches = 0
     path_launches["coupled"] = coupled_run(tmp, tmp / "coupled_run", smi)
-    return wave_err
+    weld_launches["coupled"] = welding_cuda.launches
+    return wave_err, weld_rec, wave_rec, wave_state
 
 
 # ---------------------------------------------------------------------------
@@ -1699,8 +1952,8 @@ def ensemble_run(tmp: Path, smi: str, dataset_ms: float):
     t0 = time.perf_counter()
     ens = BatchedEnsemble(cfg, ENSEMBLE_MEMBERS, device="cuda")
     init_s = time.perf_counter() - t0
-    if ens.loop_reason is not None:
-        raise AssertionError(f"ensemble: the configuration keeps the member loop: {ens.loop_reason}")
+    if ens.sim.eager_reason is not None:
+        raise AssertionError(f"ensemble: the batched step is not captured: {ens.sim.eager_reason}")
     half = ENSEMBLE_STEPS // 2
     ny, nx = ens.sim.grid.shape
     substeps = ens.sim.dyn.substeps
@@ -1826,6 +2079,181 @@ def ensemble_run(tmp: Path, smi: str, dataset_ms: float):
     if early is None:
         raise AssertionError("ensemble: no state after MESH_ENSEMBLE_STEPS steps")
     return ens, counts["batched"], counts["loop"], early, rec
+
+
+WELD_ENSEMBLE_STEPS = 3
+# phase 19's welding ensemble: phase 19's configuration (608^2, ERA5 +
+# TOPAZ4 + ETOPO, thermo on) with phase 14's FSD (20 bins, Roach welding,
+# breakup, damage feedback, melt_type 3); its members start from phase 14's
+# last state, where the ice grows in the north, with broken floes spread
+# from a numpy seed (the run breaks floes only at the ice edge, which melts).
+# Welding takes scaled areas: with unscaled ones (the default) the loop,
+# capped at 256 substeps, overshoots on floes spread over every bin and
+# wipes out the area below the last bin, in the plain version as in the
+# kernel, and the members turned NaN within three steps
+WELD_ENSEMBLE = {"wave_coupling.num_fsd_bins": 20, "wave_coupling.welding_type": "roach",
+                 "wave_coupling.fsd_welding_use_scaled_area": True,
+                 "wave_coupling.breakup_type": "uniform_size", "wave_coupling.fsd_damage_type": 1,
+                 "thermo.melt_type": 3, "moorings.use_moorings": False,
+                 "drifters.use_equally_spaced_drifters": False, "output.async_io": False}
+
+
+def welding_ensemble_phase(tmp: Path, smi: str, wave_state: dict, provider) -> dict:
+    """Phase 19's welding ensemble: a 4-member ``BatchedEnsemble`` of
+    WELD_ENSEMBLE, every member on phase 14's last state with broken floes
+    spread from its own numpy seed, WELD_ENSEMBLE_STEPS steps, each twice
+    from one state in turns: the batched step (one graph replay: the
+    substep kernel's launches and one welding launch for all members) and
+    the member loop ``step_members`` (eager), every member equal bitwise
+    after every step, the loop's welding active cells printed (> 0). Then
+    the welding kernel on the ensemble's member-minor stack (20, 4, 608,
+    608), every cell freezing: one launch equals four single-member
+    launches and the plain version bitwise (every dtype); times of each in
+    turns. ``provider`` is phase 19's
+    forcing provider (the same grid and files), taken in place of a second
+    set of dataset readers, whose weights cost ~40 s to build. Returns the
+    record and the launches of both kernels."""
+    import dataclasses
+
+    import torch
+
+    from nextsim_tpu_torch import Config
+    from nextsim_tpu_torch.core.state import member_minor
+    from nextsim_tpu_torch.ensemble.batched import BatchedEnsemble
+    from nextsim_tpu_torch.model import simulator as sim_mod
+    from nextsim_tpu_torch.ops import fsd as fsd_ops
+    from nextsim_tpu_torch.ops import momentum_cuda, welding_cuda
+
+    overrides = dict(a.split("=", 1) for a in DATASET_ARGS)
+    # (the ice comes from phase 14's state: no TOPAZ reader for the ice init)
+    overrides.update(WELD_ENSEMBLE, **{"output.exporter_path": str(tmp / "weld_ensemble"),
+                                       "setup.ice-type": "constant_partial"})
+    cfg = Config.from_files(str(ROOT / "configs" / "arctic_10km.cfg"), overrides=overrides)
+    t0 = time.perf_counter()
+    make_provider, sim_mod.make_provider = sim_mod.make_provider, lambda *a, **kw: provider
+    try:
+        ens = BatchedEnsemble(cfg, ENSEMBLE_MEMBERS, device="cuda")
+    finally:
+        sim_mod.make_provider = make_provider
+    init_s = time.perf_counter() - t0
+    n = ENSEMBLE_MEMBERS
+    kw = {}
+    for f in dataclasses.fields(ens.states):
+        if getattr(ens.states, f.name) is not None:
+            kw[f.name] = torch.stack([torch.as_tensor(wave_state[f.name], device="cuda")] * n)
+    cf = kw["conc_fsd"]
+    w = torch.as_tensor(np.stack([np.random.default_rng(19 + m).uniform(0.0, 1.0, tuple(cf.shape[1:]))
+                                  for m in range(n)]), dtype=cf.dtype, device="cuda")
+    kw["conc_fsd"] = (w / w.sum(1, keepdim=True) * cf.sum(1, keepdim=True)).contiguous()
+    if kw.get("conc_mech_fsd") is not None:
+        kw["conc_mech_fsd"] = kw["conc_fsd"].clone()
+    ens.states = ens.states.replace(**kw)
+    ny, nx = ens.sim.grid.shape
+    plan_of = (ens.sim.dtype, ens.sim.dyn.dynamics_type)
+    per_batched = momentum_cuda.launches_for(ens.sim.dyn.substeps, ny, nx, *plan_of, members=n)
+    per_loop = momentum_cuda.launches_for(ens.sim.dyn.substeps, ny, nx, *plan_of)
+    counts = {"batched": [0, 0], "loop": [0, 0]}
+    ms = {"batched": [], "loop": []}
+    active = []
+    plain_weld = fsd_ops.welding_roach
+
+    def counted_weld(x, dt, p, bins, freezing):
+        active[-1] += int((freezing & (x[:-1].sum(0) > 0.01) & (x.sum(0) > 0.1)).sum())
+        return plain_weld(x, dt, p, bins, freezing)
+
+    def timed(mode):
+        c0 = (momentum_cuda.launches, welding_cuda.launches)
+        a = time.perf_counter()
+        if mode == "batched":
+            ens.step()
+        else:
+            active.append(0)
+            fsd_ops.welding_roach = counted_weld  # the eager loop only: the count reads back
+            try:
+                ens.step_members()
+            finally:
+                fsd_ops.welding_roach = plain_weld
+        sync()
+        ms[mode].append(1e3 * (time.perf_counter() - a))
+        counts[mode][0] += momentum_cuda.launches - c0[0]
+        counts[mode][1] += welding_cuda.launches - c0[1]
+
+    for i in range(WELD_ENSEMBLE_STEPS):
+        start = _ensemble_snapshot(ens)
+        order = ("batched", "loop") if i % 2 == 0 else ("loop", "batched")
+        timed(order[0])
+        first = _ensemble_snapshot(ens)
+        _ensemble_restore(ens, start)
+        timed(order[1])
+        second = _ensemble_snapshot(ens)
+        differ = [k for k, v in first[0].items() if not same_bits(v, second[0][k])]
+        if differ or not torch.equal(first[1], second[1]):
+            raise AssertionError(f"welding ensemble step {i}: the batched step and the member loop differ in "
+                                 f"{differ or 'the AR(1) carry'}")
+    steps = WELD_ENSEMBLE_STEPS
+    if counts["batched"] != [per_batched * steps, steps] or counts["loop"] != [n * per_loop * steps, n * steps]:
+        raise AssertionError(f"welding ensemble: launches (substep, welding) {counts}")
+    if sum(active) == 0:
+        raise AssertionError("welding ensemble: welding acted on no cell")
+    for k in range(n):
+        _finite_state(ens.member_state(k), f"welding ensemble member {k}")
+    graph = ens._program.stats
+
+    # the welding kernel on the member-minor stack: one launch against a
+    # launch a member, in turns
+    x = member_minor(ens.states).conc_fsd
+    freezing = torch.ones(tuple(x.shape[1:]), dtype=torch.bool, device="cuda")
+    fp, fb, dt = ens.sim.fsd_params, ens.sim.fsd_bins, ens.sim.dt
+    singles = [(x[:, m].contiguous(), freezing[m].contiguous()) for m in range(n)]
+    c0 = welding_cuda.launches
+    out = fsd_ops.welding_roach(x, dt, fp, fb, freezing)
+    if welding_cuda.launches != c0 + 1:
+        raise AssertionError("welding ensemble: the member stack took more than one launch")
+    for m, (xm, fm) in enumerate(singles):
+        if not same_bits(out[:, m], fsd_ops.welding_roach(xm, dt, fp, fb, fm)):
+            raise AssertionError(f"welding ensemble: member {m} of the batched launch differs from its own launch")
+    plain_ms = {}
+    for dtype_name in WELDING_DTYPES:  # the stack's launch against the plain version, every dtype
+        xd = x.to(getattr(torch, dtype_name))
+        ref, _, plain_ms[dtype_name] = timed_call(lambda: fsd_ops.welding_roach_reference(xd, dt, fp, fb, freezing))
+        if not same_bits(fsd_ops.welding_roach(xd, dt, fp, fb, freezing), ref):
+            raise AssertionError(f"welding ensemble: the member stack's launch differs from the plain version "
+                                 f"in {dtype_name}")
+    t_stack, t_singles = [], []
+    for order in range(2):
+        for which in (("stack", "singles") if order == 0 else ("singles", "stack")):
+            if which == "stack":
+                t_stack.append(event_ms(lambda: fsd_ops.welding_roach(x, dt, fp, fb, freezing), reps=3))
+            else:
+                t_singles.append(event_ms(lambda: [fsd_ops.welding_roach(xm, dt, fp, fb, fm) for xm, fm in singles],
+                                          reps=3))
+    bound_ms, bound_by, _, _, n_active = welding_bound_ms(x, freezing, dt, fp, fb)
+    # ms/step of the steps after the first (the batched step's first captures)
+    stat = {mode: (float(np.median(v[1:])), min(v[1:]), max(v[1:])) for mode, v in ms.items()}
+    rec = {"ms_batched": stat["batched"], "ms_loop": stat["loop"], "launches": counts, "active_cells": active,
+           "nodes": graph["nodes"], "capture_s": graph["capture_s"], "instantiate_s": graph["instantiate_s"],
+           "pool_bytes": graph["pool_bytes"], "stack_ms": min(t_stack), "singles_ms": min(t_singles),
+           "stack_bound_ms": bound_ms, "stack_active": n_active, "stack_plain_ms": plain_ms, "init_s": init_s}
+    fmt = lambda v: f"{v[0]:.2f} ms/step (min {v[1]:.2f}, max {v[2]:.2f})"  # noqa: E731
+    phase("ensemble", f"the welding ensemble: arctic_10km.cfg {ny}x{nx}, ERA5 + TOPAZ4 + ETOPO, thermo on, 20 FSD "
+          f"bins with Roach welding on scaled areas, {n} members on phase 14's last state with broken floes spread "
+          f"from numpy, "
+          f"{steps} steps, each twice from one state in turns: init {init_s:.1f} s; over steps 2-{steps} (the first, "
+          f"in brackets with the rest, is the batched step's capture) the batched step (one graph replay) "
+          f"{fmt(stat['batched'])} ({[round(v, 1) for v in ms['batched']]}), the member loop {fmt(stat['loop'])} "
+          f"({[round(v, 1) for v in ms['loop']]}); every member equal bitwise after "
+          f"every step; welding active cells by step (the loop's, all members) {active}; launches (substep, welding) "
+          f"batched {counts['batched']}, loop {counts['loop']}; the graph: {graph['nodes']} nodes, capture "
+          f"{graph['capture_s']:.2f} s, instantiation {graph['instantiate_s']:.2f} s, pool "
+          f"{graph['pool_bytes'] / 2**20:.1f} MiB, welding launches a replay {graph['welding_launches']}; the welding "
+          f"kernel on the member-minor stack {tuple(x.shape)}, every cell freezing ({n_active} active cells): one "
+          f"launch {[round(t, 4) for t in t_stack]} ms against {n} single launches {[round(t, 4) for t in t_singles]} "
+          f"ms (CUDA events, in turns), bitwise equal, and equal to the plain version bitwise in "
+          f"{', '.join(WELDING_DTYPES)} (its time {json.dumps({k: round(v, 1) for k, v in plain_ms.items()})} ms); "
+          f"bound {bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / min(t_stack):.1f}% of it reached; {smi}")
+    del ens
+    torch.cuda.empty_cache()
+    return rec
 
 
 BATCHED_KERNEL_STEPS = 11  # no multiple of the plan's k: a remainder launch
@@ -2238,15 +2666,15 @@ def gradient_phase(smi: str) -> int:
                       f"{ms_ref:.1f} ms, {prof_ref[1]} kernels, busy {prof_ref[0]:.1f} ms, peak {peak_ref:.3f} GiB; "
                       f"relative L2 {rel:.3e}, max {_rel(g, g_ref, 'max'):.3e}")
         if name == "thermo off":
+            # (no profiled call: digesting its ~145,000 kernels took ~25 s)
             t0 = time.perf_counter()
             grad, _, _ = ke_gradient(sim, steps=GRAD_ROLLOUT)
-            g, ms, n, peak, prof = measure_gradient(grad, warm=False, profile=True)
+            g, ms, n, peak, _ = measure_gradient(grad, warm=False)
             if n != GRAD_ROLLOUT * per_loop:
                 raise AssertionError(f"gradient rollout: {n} kernel launches, expected {GRAD_ROLLOUT * per_loop}")
             launches += n
-            report.append(f"{GRAD_ROLLOUT}-step rollout f32 ({time.perf_counter() - t0:.1f} s with the profiled "
-                          f"call): {ms:.1f} ms, {n} kernel launches, {prof[1]} kernels, busy {prof[0]:.1f} ms, "
-                          f"peak {peak:.3f} GiB")
+            report.append(f"{GRAD_ROLLOUT}-step rollout f32 ({time.perf_counter() - t0:.1f} s): {ms:.1f} ms, {n} "
+                          f"kernel launches, peak {peak:.3f} GiB")
         del sim, grad, g, g_ref
 
     t0 = time.perf_counter()
@@ -2288,7 +2716,7 @@ def gradient_phase(smi: str) -> int:
 # --- 24. multi-device runs -----------------------------------------------------
 
 MESH_RANKS = 4  # a 2x2 mesh
-MESH_STEPS = 6
+MESH_STEPS = 4
 MESH_BIG = dict(BENCH_THERMO, **{"grid.nx": 1216, "grid.ny": 1216, "grid.resolution": 5e3})
 MESH_CLI = ["--config-files", "configs/toy.cfg", "simul.duration=0.0625", "moorings.snapshot=false",
             "moorings.output_timestep=0.020833333333333332", "output.output_per_day=48",
@@ -2412,7 +2840,7 @@ def _same_files(a: Path, b: Path) -> int:
 def mesh_phase(smi: str):
     """Phase 24: a 2x2 mesh of 4 ranks (gloo with host-staged strips when
     they share a card, NCCL when each has its own): the 464^2 thermo-on
-    main path, 6 steps, bbm and evp at halo depth 1 and 6, gathered state
+    main path, MESH_STEPS steps, bbm and evp at halo depth 1 and 6, gathered state
     bitwise = the single-device Simulator; 1216^2 at 5 km, thermo on, H = 6,
     3 steps timed after one; the CLI on toy.cfg with moorings, snapshots,
     drifters and a final restart on 4 ranks = on one process, bitwise.
@@ -2518,7 +2946,7 @@ def mesh_waves_rank(tmp, out_dir):
     import torch.distributed as dist
 
     from nextsim_tpu_torch import Simulator
-    from nextsim_tpu_torch.ops import momentum, momentum_cuda
+    from nextsim_tpu_torch.ops import momentum, momentum_cuda, welding_cuda
     from nextsim_tpu_torch.parallel.distributed import local_device
 
     rank = dist.get_rank()
@@ -2539,7 +2967,7 @@ def mesh_waves_rank(tmp, out_dir):
 
     sim._wim_exchange = timed_exchange
     dist.barrier()
-    momentum_cuda.launches = 0
+    momentum_cuda.launches = welding_cuda.launches = 0
     step_ms, snap = [], None
     for k in range(MESH_WAVE_STEPS):
         if k == MESH_WAVE_STEPS - 1:  # the step-20 state and the next step's forcing, for the check
@@ -2552,6 +2980,7 @@ def mesh_waves_rank(tmp, out_dir):
         step_ms.append(1e3 * (time.perf_counter() - a))
     launches = momentum_cuda.launches
     rec = {"rank": rank, "device": str(device), "backend": dist.get_backend(), "block": list(sim.state.conc.shape),
+           "welding_launches": welding_cuda.launches,
            "wim_block": list(sim.wim.sdf.shape), "init_s": init_s, "launches": launches, "step_ms": step_ms,
            "exchanges": exchanges, "seam_s": sim.mesh.seconds, "seam_bytes": sim.mesh.stats.bytes,
            "wim_ring_s": sim.wim.mesh.seconds, "wim_ring_bytes": sim.wim.mesh.stats.bytes}
@@ -2618,6 +3047,9 @@ def mesh_waves_phase(tmp: Path, smi: str):
         raise AssertionError("mesh waves: the WIM broke no floes")
     if any(r["launches"] <= 0 for r in recs):
         raise AssertionError(f"mesh waves: a rank ran without the kernel: {[r['launches'] for r in recs]}")
+    if any(r["welding_launches"] != MESH_WAVE_STEPS for r in recs):
+        raise AssertionError(f"mesh waves: welding launches by rank {[r['welding_launches'] for r in recs]}, "
+                             f"not one a step")
     kernel_err = recs[0]["kernel_err"]
     if kernel_err != 0.0:
         raise AssertionError(f"mesh waves: the kernel on rank 0's ext block is {kernel_err} off the plain loop")
@@ -2631,13 +3063,14 @@ def mesh_waves_phase(tmp: Path, smi: str):
           f"{[[round(e['ring_s'], 3) for e in r['exchanges']] for r in recs]} s, ring bytes a WIM exchange by rank "
           f"{[[e['ring_bytes'] for e in r['exchanges']] for r in recs]}; Seam.seconds of the sea ice by rank "
           f"{[round(r['seam_s'], 3) for r in recs]} s ({[r['seam_bytes'] for r in recs]} bytes); kernel launches by "
-          f"rank {[r['launches'] for r in recs]}; the world took {t_world:.1f} s; {smi}")
+          f"rank {[r['launches'] for r in recs]}, welding launches {[r['welding_launches'] for r in recs]}; the world "
+          f"took {t_world:.1f} s; {smi}")
     phase("mesh waves", f"against the single-device Simulator over the same {MESH_WAVE_STEPS} steps ({t_ref:.1f} s, "
           f"{n_broken} broken cells): {'bitwise equal' if bitwise else f'not bitwise equal (tolerance {MESH_WAVE_RTOL:g} of each field magnitude, float32)'}; "
           f"max |diff| by field {json.dumps({k: float(f'{v:.3e}') for k, v in worst.items()})}; the kernel on rank 0's "
           f"ext block of the step-20 state equals the plain loop bitwise (bbm, 6 substeps); times of ranks that "
           f"share one card are no scaling numbers; {smi}")
-    return sum(r["launches"] for r in recs), kernel_err
+    return sum(r["launches"] for r in recs), kernel_err, sum(r["welding_launches"] for r in recs)
 
 
 def mesh_ensemble_rank(cfg_path, overrides, cases, out_dir):
@@ -2683,8 +3116,16 @@ def mesh_ensemble_rank(cfg_path, overrides, cases, out_dir):
             step_ms.append(1e3 * (time.perf_counter() - a))
         launches = momentum_cuda.launches
         save(ens, f"{name}_next" if checkpoint else name)
+        # a batched step runs one loop of launches for the rank's members:
+        # on blocks, substeps / H calls of H substeps on the ext block
+        sim, block = ens.sim, tuple(ens.states.conc.shape[1:])
+        calls, per_call = (1, sim.dyn.substeps) if sim.mesh is None else (
+            sim.dyn.substeps // sim.mesh.halo_depth, sim.mesh.halo_depth)
+        per_step = calls * momentum_cuda.launches_for(per_call, *block, sim.dtype, sim.dyn.dynamics_type,
+                                                      members=len(ens.members))
         recs.append({"name": name, "rank": rank, "members": ens.members, "init_s": init_s, "step_ms": step_ms,
-                     "launches": launches, "block": list(ens.states.conc.shape[1:])})
+                     "launches": launches, "block": list(block), "per_step": per_step,
+                     "steps": steps + bool(checkpoint)})
         del ens
         torch.cuda.empty_cache()
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(recs))
@@ -2746,14 +3187,16 @@ def mesh_ensemble_phase(tmp: Path, smi: str, ens, early):
     def of(name):
         return [r for r in recs if r["name"] == name]
 
-    for name, what in (("m4", "(4,): a member a rank"), ("m212", "(2, 1, 2): 2 members on 1x2 blocks a group")):
+    for name, what in (("m4", "(4,): a member a rank"),
+                       ("m212", "(2, 1, 2): 2 members on 1x2 blocks a group, the batched step")):
         rs = of(name)
-        if any(r["launches"] <= 0 for r in rs):
-            raise AssertionError(f"mesh ensemble {name}: a rank ran without the kernel")
+        if any(r["launches"] <= 0 or r["launches"] != r["per_step"] * r["steps"] for r in rs):
+            raise AssertionError(f"mesh ensemble {name}: kernel launches by rank {[r['launches'] for r in rs]}, "
+                                 f"not one batched loop a step ({[r['per_step'] for r in rs]})")
         phase("mesh ensemble", f"{what}: members by rank {[r['members'] for r in rs]}, blocks "
               f"{[tuple(r['block']) for r in rs]}; init by rank {[round(r['init_s'], 1) for r in rs]} s; ms/step by rank "
-              f"{[[round(m, 1) for m in r['step_ms']] for r in rs]}; kernel launches by rank {[r['launches'] for r in rs]}; "
-              f"{smi}")
+              f"{[[round(m, 1) for m in r['step_ms']] for r in rs]}; kernel launches by rank {[r['launches'] for r in rs]} "
+              f"({[r['per_step'] for r in rs]} a step: one loop for the rank's members); {smi}")
     phase("mesh ensemble", f"phase 19's configuration (608^2, ERA5 + TOPAZ4 + ETOPO, thermo on), 4 members x "
           f"{MESH_ENSEMBLE_STEPS} steps on the member meshes (4,) and (2, 1, 2): every member equals phase 19's "
           f"single-device BatchedEnsemble bitwise; the (4,) checkpoint read by phase 19's ensemble equals it, and one "
@@ -2808,7 +3251,9 @@ def mesh_gradient_rank(out_dir):
         launches = momentum_cuda.launches
         peak = (torch.cuda.max_memory_allocated(device) - base) / 2**30
         rings = sim.mesh.exchanges - rings0
-        _, busy, kernels = profiled(grad, host_events=False)  # one more call: every kernel on the card
+        # one more call of the float32 gradient under the profiler: every
+        # kernel on the card (float64's: not profiled, to save its digest)
+        _, busy, kernels = profiled(grad, host_events=False) if dtype_name == "float32" else (None, None, None)
         recs.append({"dtype": dtype_name, "rank": rank, "ms": ms, "launches": launches, "peak_gib": peak,
                      "rings": rings, "kernels": kernels, "busy_ms": busy, "block": list(sim.state.conc.shape)})
         grads[dtype_name] = g.cpu().numpy()
@@ -2844,11 +3289,13 @@ def mesh_gradient_phase(tmp: Path, smi: str, single: dict):
             rs = [r for r in recs if r["dtype"] == dtype_name]
             if any(r["launches"] <= 0 for r in rs):
                 raise AssertionError(f"mesh gradient {dtype_name}: a rank ran without the kernel")
+            profile = (f", kernels by rank {[r['kernels'] for r in rs]} (device busy "
+                       f"{[round(r['busy_ms'], 1) for r in rs]} ms; one more call under torch.profiler)"
+                       if rs[0]["kernels"] is not None else "")
             report.append(f"{dtype_name}: relative L2 {rel:.3e} from phase 23's single-device gradient (max "
                           f"{float(np.abs(g - ref).max() / np.abs(ref).max()):.3e}); ms by rank "
                           f"{[round(r['ms'], 1) for r in rs]}, substep-kernel launches by rank "
-                          f"{[r['launches'] for r in rs]}, kernels by rank {[r['kernels'] for r in rs]} (device busy "
-                          f"{[round(r['busy_ms'], 1) for r in rs]} ms; one more call under torch.profiler), "
+                          f"{[r['launches'] for r in rs]}{profile}, "
                           f"ring exchanges by rank {[r['rings'] for r in rs]}, peak memory by rank "
                           f"{[round(r['peak_gib'], 3) for r in rs]} GiB")
     phase("mesh grad", f"d(mean KE)/d(wind_u) through raw_step_fn at 464^2 on a 2x2 mesh, H = 6, BBM, blocks "
@@ -3286,6 +3733,7 @@ def main() -> int:
     sync()
     first_s = time.perf_counter() - t0
     path_launches = {"main": momentum_cuda.launches}  # the kernel's launches on every path driven
+    weld_launches = {}  # the welding kernel's, on the paths that weld
     momentum_cuda.launches = 0
     t0 = time.perf_counter()
     sim.step_chunk()
@@ -3402,7 +3850,8 @@ def main() -> int:
             dataset_timings(sim, smi)
             dataset_sim = sim  # phase 29 steps it again while its files exist
             del sim
-            wave_err = wave_phases(tmp, smi, dataset_ms, path_launches)
+            wave_err, weld_rec, wave_rec, wave_state = wave_phases(tmp, smi, dataset_ms, path_launches,
+                                                                   weld_launches)
         nested_card_vs_cpu(tmp, smi)
         standalone_wim(tmp, smi)
 
@@ -3412,6 +3861,9 @@ def main() -> int:
             ens, path_launches["ensemble_batched"], path_launches["ensemble"], early, ens_rec = ensemble_run(
                 tmp, smi, dataset_ms)
             batched_rec = batched_kernel_phase(ens, smi)
+            weld_ens = welding_ensemble_phase(tmp, smi, wave_state, ens.sim.forcing_provider)
+            del wave_state
+            path_launches["ensemble_welding"], weld_launches["ensemble_welding"] = weld_ens["launches"]["batched"]
         ensemble_members_vs_simulators(smi)
         ensemble_driver(tmp, smi)
         path_launches["validation"] = validation_run(tmp, smi, ens)
@@ -3424,7 +3876,7 @@ def main() -> int:
 
         # 25-27. the wave path on a 2x2 mesh, the member meshes, a mesh gradient
         with data_dir(tmp / "data"):
-            path_launches["mesh_waves"], mesh_wave_err = mesh_waves_phase(tmp, smi)
+            path_launches["mesh_waves"], mesh_wave_err, weld_launches["mesh_waves"] = mesh_waves_phase(tmp, smi)
             path_launches["mesh_ensemble"] = mesh_ensemble_phase(tmp, smi, ens, early)
         path_launches["mesh_gradient"] = mesh_gradient_phase(tmp, smi, single_grads)
 
@@ -3449,6 +3901,8 @@ def main() -> int:
     phase("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     if min(path_launches.values()) <= 0:
         raise AssertionError(f"a path ran without the kernel: {path_launches}")
+    if sorted(weld_launches) != sorted(WELDING_PATHS) or min(weld_launches.values()) <= 0:
+        raise AssertionError(f"a welding path ran without the welding kernel: {weld_launches}")
 
     print(json.dumps({"kernels": [{
         "name": "momentum_substep",
@@ -3475,7 +3929,29 @@ def main() -> int:
                      for label, r in captured.items()},
         "ensemble_608x4": ens_rec,
         "batched_608x4": batched_rec,
+        "wave_captured": {key: wave_rec[key] for key in ("ms_eager", "ms_captured", "nodes", "capture_s",
+                                                          "instantiate_s", "pool_bytes", "replay_launches")},
         "bench_ocean_cell_substeps_per_s": bench["value"],
+    }, {
+        "name": "welding_roach",
+        "route": "cuda",
+        "source": "nextsim_tpu_torch/csrc/welding_roach.cu",
+        "replaces": "nextsim_tpu/ops/fsd.py:243 (welding_roach: XLA-fused jnp, no Pallas kernel)",
+        "launches": sum(weld_launches.values()),
+        "launches_by_path": weld_launches,
+        "paths": WELDING_PATHS,
+        "not_on_paths": "main, main_graph, thermo, datasets, ensemble, ensemble_batched, validation, gradient, "
+                        "mesh, mesh_ensemble, mesh_gradient and bf16 configure no floe-size distribution, so "
+                        "they do not weld",
+        "max_abs_err": max(r["max_abs_err"] for r in weld_rec["by_case"].values()),
+        "ms": weld_rec["ms"],
+        "plain_ms": weld_rec["plain_ms"],
+        "bound_ms": weld_rec["bound_ms"],
+        "bound_by": weld_rec["bound_by"],
+        "library_ms": None,  # no PyTorch call computes this function
+        "active_cells": weld_rec["active"],
+        "by_case": weld_rec["by_case"],
+        "ensemble_welding_608x4": weld_ens,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

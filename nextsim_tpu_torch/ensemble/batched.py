@@ -21,13 +21,15 @@ one replay of a captured CUDA graph (``model/captured.py``), its inputs the
 stack, the stacked forcing and the time flags. On the CPU the same body
 runs eagerly. Member m equals the member stepped alone bitwise.
 
-``step_members`` keeps the member loop: each member in turn through the
-template Simulator's ``raw_step_fn`` on the views ``x[k]`` of the stack. It
-is the batched step's oracle, and ``step`` runs it for the configurations
-of ``Simulator.member_loop_reason`` (a block layout, FSD Roach welding, the
-WIM, the coupler, nesting), logging the reason at the first step.
-``python -m nextsim_tpu_torch.ensemble.run_ensemble`` runs members as
-separate Simulators instead.
+``step`` runs the batched step for every configuration, as the JAX
+package's ``_vstep`` does: FSD Roach welding (one launch of its kernel for
+all members), the WIM, the coupler and nesting (whose exchanges, received
+fields and outer runs are not run per member, in either package: the step
+takes the provider's forcing) and block layouts (below). ``step_members``
+keeps the member loop: each member in turn through the template
+Simulator's ``raw_step_fn`` on the views ``x[k]`` of the stack. It is the
+batched step's oracle. ``python -m nextsim_tpu_torch.ensemble.run_ensemble``
+runs members as separate Simulators instead.
 
 Member 0 is the unperturbed control; members 1..N-1 carry independent AR(1)
 spectral forcing perturbations (ensemble/perturbation.py). Member m's stream
@@ -44,11 +46,12 @@ alone is ``(1, dpy, dpx)``). The ranks form P groups of dpy x dpx
 steps them through its own template Simulator on its blocks, with the
 group's ``seam.Seam`` as its exchanger, and draws their noise from their
 own generators, seeded as everywhere, so member m's draws do not depend on
-the layout. A group of one block (``(P,)``) runs the batched step over its
-members; a group of several keeps the member loop. What reads the whole
-ensemble (``member_state``, ``spread``, ``mean_state``, the statistics
-records, the checkpoint) gathers the members' global planes from the groups
-(collective: every rank calls it).
+the layout. Every group runs the batched step over its members; on blocks
+its rings carry all of the group's members in one exchange, and the step
+stays eager (the rings go through torch.distributed) but batched. What
+reads the whole ensemble (``member_state``, ``spread``, ``mean_state``, the
+statistics records, the checkpoint) gathers the members' global planes from
+the groups (collective: every rank calls it).
 
 Checkpoints are one ``restart_<name>.npz`` (the JAX package writes an orbax
 directory; the port has no orbax): the stacked state, the AR(1) carry and
@@ -167,12 +170,11 @@ class BatchedEnsemble:
         self.generators = [member_generator(seed, m, self.sim.device) for m in self.members if m > 0]
         self._ran = None  # AR(1) carry of this group's perturbed members, (n_p, 4, ny, nx)
         self.pcpt = 0
-        # the batched step: one graph replay a step on the card, or the
-        # member loop where loop_reason says why
-        self.loop_reason = self.sim.member_loop_reason()
-        self._loop_logged = False
+        # the batched step: one graph replay a step on the card, the eager
+        # batched body where the template's eager_reason says why (a block
+        # layout)
         self._program = Captured(self._batched_body, name="ensemble step program", log=self.sim.log,
-                                 capture=self.loop_reason is None)
+                                 capture=self.sim.eager_reason is None)
         self.violations = None  # the last batched step's flags, (members of this group, checks)
 
     @property
@@ -201,18 +203,11 @@ class BatchedEnsemble:
 
     # -- stepping ---------------------------------------------------------
     def step(self) -> None:
-        """Advance every member one step: the batched step (one graph replay
-        on the card), or ``step_members`` where ``loop_reason`` says why."""
-        if self.loop_reason is not None:
-            if not self._loop_logged:
-                self._loop_logged = True
-                self.sim.log.info(f"BatchedEnsemble steps its members one by one on {self.sim.device}: "
-                                  f"{self.loop_reason}")
-            self.step_members()
-            return
+        """Advance every member one step: the batched step, one graph replay
+        on the card (on blocks, the eager batched body)."""
         sim = self.sim
         t_next = sim.time_init + (self.pcpt + 1) * sim.dt * dates.DAYS_IN_SEC
-        forcing = stack_forcings(self._member_forcings(t_next))
+        forcing = sim.to_blocks(stack_forcings(self._member_forcings(t_next)))
         flags = sim.time_flags([sim.time_info_at(sim.time_init + self.pcpt * sim.dt * dates.DAYS_IN_SEC)])
         self.states, self.violations = self._program(self.states, forcing, flags)
         self._after_step()

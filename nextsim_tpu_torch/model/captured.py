@@ -28,9 +28,10 @@ Python's garbage collector is off during a capture (a graph destroyed by a
 collection frees device memory, which a capture cannot hold). The
 wrapper runs ``fn`` under ``torch.no_grad()`` on the card: a gradient goes
 through ``Simulator.raw_step_fn``, never through a graph.
-``momentum_cuda.launches`` counts the substep kernel's launches that a
-replay makes: the capture records them without running them, so the count
-is set back after the capture and raised by that many at every replay.
+``momentum_cuda.launches`` and ``welding_cuda.launches`` count the substep
+and welding kernels' launches that a replay makes: the capture records them
+without running them, so each count is set back after the capture and
+raised by that many at every replay.
 """
 
 from __future__ import annotations
@@ -45,7 +46,10 @@ from typing import Callable, Optional
 
 import torch
 
-from nextsim_tpu_torch.ops import momentum_cuda
+from nextsim_tpu_torch.ops import momentum_cuda, welding_cuda
+
+#: the wrappers whose ``launches`` count their kernel's launches
+_COUNTERS = (momentum_cuda, welding_cuda)
 
 
 def flatten(tree):
@@ -142,7 +146,7 @@ class _Graph:
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved()
-            counted = momentum_cuda.launches
+            counted = [m.launches for m in _COUNTERS]
             t0 = time.perf_counter()
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
             # no garbage collection during the capture: a collected graph's
@@ -157,8 +161,9 @@ class _Graph:
                 if gc_was_on:
                     gc.enable()
             t1 = time.perf_counter()
-            self.kernel_launches = momentum_cuda.launches - counted
-            momentum_cuda.launches = counted
+            self.launches = [m.launches - c for m, c in zip(_COUNTERS, counted)]
+            for m, c in zip(_COUNTERS, counted):
+                m.launches = c
             nodes = graph_nodes(self.graph)
             self.graph.instantiate()
             uploaded = upload(self.graph)
@@ -170,7 +175,8 @@ class _Graph:
             "instantiate_s": time.perf_counter() - t1,  # the upload included
             "uploaded": uploaded,
             "pool_bytes": torch.cuda.memory_reserved() - reserved,
-            "kernel_launches": self.kernel_launches,
+            "kernel_launches": self.launches[0],
+            "welding_launches": self.launches[1],
         }
         if log is not None:
             log.info(f"{name}: captured a CUDA graph of {nodes} nodes in {self.stats['capture_s']:.2f} s, "
@@ -188,7 +194,8 @@ class _Graph:
         if dst:
             torch._foreach_copy_(dst, src)
         self.graph.replay()
-        momentum_cuda.launches += self.kernel_launches
+        for m, n in zip(_COUNTERS, self.launches):
+            m.launches += n
         return _copies(self.out_def, self.out_leaves)
 
 
@@ -226,5 +233,6 @@ class Captured:
     @property
     def stats(self) -> dict:
         """The numbers of the last graph captured: nodes, capture and
-        instantiation seconds, pool bytes, substep-kernel launches."""
+        instantiation seconds, pool bytes, substep-kernel and welding-kernel
+        launches."""
         return list(self.graphs.values())[-1].stats if self.graphs else {}

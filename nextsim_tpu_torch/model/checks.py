@@ -49,8 +49,8 @@ def violations(state, use_young_ice: bool = True, owned=None, members: bool = Fa
     ``owned`` crops a rank's block to its owned region. ``members``: the
     state is a batched one, a member axis before the plane's two axes
     (``core.state.member_minor``), and the flags are (N, checks), each
-    member's own, as the JAX package's ``jax.vmap`` of the step gives
-    them."""
+    member's own (on a device mesh, each member's owned cells), as the JAX
+    package's ``jax.vmap`` of the step gives them."""
     if owned is not None:
         state = owned(state)
     if members:

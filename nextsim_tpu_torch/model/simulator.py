@@ -31,18 +31,24 @@ The violation flags are maxed on the device and read back once per chunk
 or chunk, and ``run`` clamps the chunk length so that it divides each exact
 output cadence, as the JAX package does.
 
-Three configurations keep the eager step loop (``step_eager``,
+Two configurations keep the eager step loop (``step_eager``,
 ``step_chunk_eager``, also the captured program's oracle) and log why at
-their first step: a device mesh (its rings go through torch.distributed),
-FSD Roach welding (``fsd.welding_roach`` reads back twice a call) and a
-perturbed ensemble member (its AR(1) chain draws from a torch.Generator,
-which the JAX package advances inside its chunk program).
+their first step: a device mesh (its rings go through torch.distributed)
+and a perturbed ensemble member (its AR(1) chain draws from a
+torch.Generator, which the JAX package advances inside its chunk program).
+FSD Roach welding is one launch of a CUDA kernel on the card
+(``fsd.welding_roach``), which reads nothing back, so the wave path is
+captured too.
 
 ``batched_step_fn`` steps N members at once, the JAX package's ``jax.vmap``
-of the step that its batched ensemble jits (``ensemble/batched.py``): the
-step on a member-minor stack, one substep loop of kernel launches for all
-members; ``member_loop_reason`` names the configurations whose members
-still step one by one.
+of the step that its batched ensemble jits (``ensemble/batched.py``), for
+every configuration: the step on a member-minor stack (a plane ``(N, ny,
+nx)``, or ``(N, ey, ex)`` ext blocks on a device mesh; ``tice``, ``sigma``
+and ``conc_fsd`` ``(c, N, ...)``), one substep loop of kernel launches and
+one welding launch for all members, the mesh's rings carrying every
+member's strips in one exchange. The WIM, the coupler and nesting are not
+run per member there, as in the JAX package: the batched step takes the
+provider's forcing and no outer fields.
 
 A device mesh (``tpu.mesh_shape = DPYxDPX``) runs one torch.distributed
 rank per block (parallel/seam.py): each rank holds its ext block of the
@@ -421,36 +427,15 @@ class Simulator:
         The step runs once on the member-minor layout (``core.state.
         member_minor``): every operator takes planes with leading axes, the
         grid arrays and shared forcing planes broadcast, and the substep
-        loop is one loop of kernel launches for all members on the card.
-        Member m's result equals ``raw_step_fn`` on member m alone bitwise.
-        Not for the configurations of ``member_loop_reason`` (ValueError) and
-        not differentiable (the batched substep loop refuses a gradient)."""
-        reason = self.member_loop_reason()
-        if reason is not None:
-            raise ValueError(f"batched_step_fn: this configuration steps its members one by one: {reason}")
-        state, diag, viol = self._step_fn(member_minor(states), forcing, tinfo, members=True)
+        loop is one loop of kernel launches for all members on the card. On
+        a device mesh the planes are ext blocks, the rings exchange every
+        member's strips at once (``self.mesh``), and the flags count each
+        member's owned cells. Member m's result equals ``raw_step_fn`` on
+        member m alone bitwise. Not differentiable (the batched substep loop
+        refuses a gradient)."""
+        state, diag, viol = self._step_fn(member_minor(states), forcing, tinfo, exchanger=self.mesh,
+                                          members=True)
         return member_first(state), diag, viol
-
-    def member_loop_reason(self) -> Optional[str]:
-        """Why a batched ensemble of this configuration steps its members
-        one after another (``BatchedEnsemble.step_members``), or None when
-        ``batched_step_fn`` runs them at once. The JAX package vmaps each of
-        these too: they are open items of the port (ROADMAP)."""
-        if self.mesh is not None:
-            return ("a block layout (dpy x dpx > 1) exchanges Seam rings of one member's planes "
-                    "(parallel/seam.py)")
-        fp = self.fsd_params
-        if fp is not None and self.use_thermo and fp.welding_type == "roach":
-            return ("FSD Roach welding reads back twice a call (ops/fsd.py welding_roach: "
-                    "bool(active.any()) and int(ndt.max())), so its loop would run to the largest "
-                    "member's count")
-        if self.wim is not None:
-            return "the waves-in-ice module's state and fields are one member's (nextwim.use_wim)"
-        if self.coupler is not None:
-            return "the coupler's received fields and running sums are one member's (coupler)"
-        if self.nesting is not None:
-            return "the nesting sponge's outer fields are one member's (nesting.use_nesting)"
-        return None
 
     def _fsd_block(self, state, forcing, diag):
         """The floe-size distribution's part of a step: rescale to the new
@@ -488,10 +473,6 @@ class Simulator:
         if self.mesh is not None:
             return ("a device mesh exchanges rings through torch.distributed inside the step "
                     "(NCCL graphs on a mesh: ROADMAP)")
-        fp = self.fsd_params
-        if fp is not None and self.use_thermo and fp.welding_type == "roach":
-            return ("FSD Roach welding reads back twice a call (ops/fsd.py welding_roach: "
-                    "bool(active.any()) and int(ndt.max()))")
         if self.cfg["statevector.ensemble_member"] > 0:
             return ("a perturbed ensemble member draws its AR(1) chain from a torch.Generator, "
                     "which the JAX package advances inside its chunk program; a graph needs the "

@@ -8,7 +8,9 @@ per cell, with
 * wave-induced breakup redistribution (none/uniform_size/zhang/dumont,
   reference enums.hpp:110-116) driven by the coupled wave field `wlbk`
   (breaking wavelength),
-* Roach et al. (2018) welding (coagulation) during freezing,
+* Roach et al. (2018) welding (coagulation) during freezing: on the card a
+  CUDA kernel (csrc/welding_roach.cu, ops/welding_cuda.py), on the CPU its
+  plain version ``welding_roach_reference``,
 * shape-conserving rescaling to the total concentration after any process
   that changes conc (updateFSD),
 * optional damage feedback (wave_coupling.fsd_damage_type).
@@ -32,6 +34,9 @@ from nextsim_tpu_torch.ops.rheology import _fast_pow
 
 #: cap on the per-cell welding substeps (the JAX package's loop length)
 WELDING_NDT_MAX = 256
+#: a welding cell's least broken area and least concentration
+WELDING_BROKEN_MIN = 0.01
+WELDING_TOTAL_MIN = 0.1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,46 +261,83 @@ def wave_breakup(
     return torch.stack(out), active
 
 
-def _welding_plan(bins: FSDBins, n: int, dtype, device):
-    """The static pair structure of the coagulation sum, per lower bin ky:
-    for the rows kx = ky..n-1, the merge bin a(kx, ky) and the host
-    coefficients of the pair term, as tensors. Pairs whose merge bin is
-    undefined (a < 1) are masked out; the mask is None when there is none."""
-    plan = []
+def welding_pairs(bins: FSDBins, n: int):
+    """The static pair structure of the coagulation sum, as host lists in
+    the order of the sum (ky, then kx = ky..n-1): for every pair its merge
+    bin a(kx, ky) (1..n; 1 where it is undefined), the width of bin a - 1,
+    the offset of the pair term and its valid flag (0.0 where the merge bin
+    is undefined). The plain loop and the kernel's table (ops/welding_cuda.py)
+    both come from it."""
+    merge, width, off, valid = [], [], [], []
     for ky in range(n):
-        a_idx, width, off, valid = [], [], [], []
         for kx in range(ky, n):
             a = int(bins.alpha_merge[kx, ky])
             ok = a >= 1
             a = a if ok else 1
-            a_idx.append(a)
+            merge.append(a)
             width.append(max(bins.scaled_binwidth[a - 1], 1e-30))
             off.append(bins.scaled_up[a - 1] - bins.scaled_up[kx] + bins.scaled_centre[ky])
             valid.append(1.0 if ok else 0.0)
-        col = lambda v: torch.as_tensor(v, dtype=dtype, device=device)[:, None]  # noqa: E731
-        a_idx = torch.as_tensor(a_idx, dtype=torch.int64, device=device)
-        plan.append((a_idx, a_idx - 1, col(width), col(off), None if all(valid) else col(valid)))
+    return merge, width, off, valid
+
+
+def _welding_plan(bins: FSDBins, n: int, dtype, device):
+    """``welding_pairs`` per lower bin ky as tensors: for the rows kx =
+    ky..n-1, the merge bin, the bin before it and the columns of width,
+    offset and valid flag; the valid column is None where every pair of the
+    row is valid."""
+    merge, width, off, valid = welding_pairs(bins, n)
+    col = lambda v: torch.as_tensor(v, dtype=dtype, device=device)[:, None]  # noqa: E731
+    plan, q = [], 0
+    for ky in range(n):
+        rows = slice(q, q + n - ky)
+        q += n - ky
+        a_idx = torch.as_tensor(merge[rows], dtype=torch.int64, device=device)
+        plan.append((a_idx, a_idx - 1, col(width[rows]), col(off[rows]),
+                     None if all(valid[rows]) else col(valid[rows])))
     return plan
 
 
 def welding_roach(conc_fsd, dt: float, p: FSDParams, bins: FSDBins, freezing):
     """Roach et al. (2018) coagulation during freezing (reference:
-    weldingRoach, fe.cpp:4720-4850). Vectorised over cells with the
-    reference's per-cell sub-time stepping expressed as masked substeps.
+    weldingRoach, fe.cpp:4720-4850), the JAX package's ``welding_roach``.
+    A stack on the CPU runs ``welding_roach_reference``; on the card the
+    CUDA kernel of csrc/welding_roach.cu runs it (``welding_cuda.
+    welding_roach``: one launch, nothing read back, a recorded gradient
+    through ``welding_cuda.WeldingRoach``), or raises: nothing falls back
+    to the plain loop there. ``conc_fsd`` is (nbins, ny, nx) or a batched
+    ensemble's member-minor (nbins, N, ny, nx)."""
+    if not _kernel_for(conc_fsd):
+        return welding_roach_reference(conc_fsd, dt, p, bins, freezing)
+    from nextsim_tpu_torch.ops import welding_cuda
+
+    return welding_cuda.welding_roach(conc_fsd, dt, p, bins, freezing)
+
+
+def _kernel_for(conc_fsd) -> bool:
+    """Whether ``welding_roach`` takes the kernel for this stack: on any
+    device but the CPU."""
+    return conc_fsd.device.type != "cpu"
+
+
+def welding_roach_reference(conc_fsd, dt: float, p: FSDParams, bins: FSDBins, freezing):
+    """The plain version of ``welding_roach``: the reference's per-cell
+    sub-time stepping expressed as masked substeps, vectorised over cells.
 
     The update is pointwise in the cell, and a cell that is not active, or
     whose own count ``ndt`` is reached, keeps its value. So the active cells
     are gathered into a dense (nbins, m) array (one read-back of their
     number and of their largest ``ndt`` per call), the loop runs on those to
     that count, and the result is scattered back: what the fixed loop of
-    ``WELDING_NDT_MAX`` masked substeps over the whole grid gives. Within a
+    ``WELDING_NDT_MAX`` masked substeps over the whole grid gives, cell by
+    cell, so a member-minor stack gives each member's own result. Within a
     substep the pair terms of one lower bin ky are formed for all upper bins
     kx at once and added to the bins' sums in ky order, the reference's
-    order of additions."""
+    order of additions. The kernel's oracle on the card."""
     n = p.num_bins
     ctot_all = conc_fsd.sum(dim=0)
     c_broken = conc_fsd[:-1].sum(dim=0)
-    active = freezing & (c_broken > 0.01) & (ctot_all > 0.1)
+    active = freezing & (c_broken > WELDING_BROKEN_MIN) & (ctot_all > WELDING_TOTAL_MIN)
     if not bool(active.any()):
         return conc_fsd
 

@@ -763,33 +763,43 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError(
-        "substep_loop: nvcc not found (on PATH, or under $CUDA_HOME/bin); "
-        "the CUDA kernel is built from csrc/momentum_substep.cu on first use"
+        "nvcc not found (on PATH, or under $CUDA_HOME/bin); the CUDA kernels are "
+        "built from nextsim_tpu_torch/csrc/ on first use"
     )
 
 
 def build(flags=_NVCC_FLAGS) -> Path:
     """Compile the kernel into ``nextsim_tpu_torch/build/`` unless a library
-    built from the same source and flags is there; returns its path. The
-    ranks of a mesh that start together may each compile it (seconds for
-    this file); each writes its own temporary file and renames it into
-    place, so every rank loads a whole library."""
+    built from the same source and flags is there; returns its path."""
     global build_log
-    tag = hashlib.sha256(_SRC.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"libmomentum_substep_{tag}.so"
+    out, log = compile_library(_SRC, "libmomentum_substep", flags)
+    if log is not None:
+        build_log = log
+    return out
+
+
+def compile_library(src: Path, stem: str, flags) -> tuple:
+    """``nvcc`` of ``src`` with ``flags`` into ``<stem>_<tag>.so`` in the
+    build directory, the tag a hash of the source and the flags, unless that
+    file is there: (its path, what nvcc printed, or None when it was
+    there). The ranks of a mesh that start together may each compile it
+    (seconds for a file with a plain C interface); each writes its own
+    temporary file and renames it into place, so every rank loads a whole
+    library."""
+    tag = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    out = _BUILD_DIR / f"{stem}_{tag}.so"
     if out.exists():
-        return out
+        return out, None
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = _BUILD_DIR / f".{out.name}.{os.getpid()}.tmp"
     res = subprocess.run(
-        [_nvcc(), *flags, "-o", str(tmp), str(_SRC)],
+        [_nvcc(), *flags, "-o", str(tmp), str(src)],
         capture_output=True, text=True,
     )
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
-    build_log = res.stdout + res.stderr
-    return out
+    return out, res.stdout + res.stderr
 
 
 def load(path: Path):

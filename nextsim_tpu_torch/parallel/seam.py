@@ -113,7 +113,11 @@ Sub-groups. A batched ensemble on a ``(P, dpy, dpx)`` member mesh runs P
 groups of dpy x dpx ranks, each with its own ``Seam``: its exchanges,
 gathers and reductions name the group (``Seam.group``), and its layout's
 neighbours are global ranks, the group's first rank (``BlockLayout.offset``)
-plus the block's index.
+plus the block's index. The group's batched step holds its members on the
+member-minor layout, ext blocks with leading axes (a plane ``(N, ey, ex)``,
+``sigma`` ``(3, N, ey, ex)``): a strip is cut on the last two axes, so one
+ring carries every member's strips, and the substep kernel reads the
+member stack of ext blocks with a member stride of one block.
 """
 
 from __future__ import annotations

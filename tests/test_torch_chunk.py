@@ -21,9 +21,12 @@ the CPU the same body runs eagerly, and here it is held:
 * the body reads nothing back from the device (no ``.item()``, ``float()``
   or ``bool()`` of a tensor, no ``nonzero``): run under a dispatch mode that
   raises on such a read, since a CUDA graph cannot hold one;
+* with FSD Roach welding the body reads nothing back either, its welding
+  dispatched to the kernel's launch, here a stand-in for it
+  (tests/test_torch_welding.py ``emulate_kernel``), and equals the plain
+  version's body bitwise;
 * the configurations that keep the eager loop on the card (a device mesh,
-  FSD Roach welding, a perturbed ensemble member) name their reason and log
-  it once;
+  a perturbed ensemble member) name their reason and log it once;
 * the port's bench (``nextsim_tpu_torch/bench.py``) keeps ``bench.py``'s
   anchor constants, metric and keys.
 """
@@ -56,6 +59,15 @@ from test_torch_simulator import (DATASET_SLICE, REPO, SLICES, THERMO_TOLS, asse
 
 torch.set_num_threads(1)
 
+# FSD Roach welding with thermodynamics on a 24^2 square of full ice: the
+# ice grows (and welds, given broken floes) at the second step
+WELDING = {
+    "grid.preset": "square", "grid.nx": 24, "grid.ny": 24, "grid.resolution": 10e3,
+    "simul.timestep": 200, "simul.time_init": "2015-10-16 00:00:00", "dynamics.substeps": 20,
+    "thermo.use_thermo_forcing": True, "ideal_simul.init_SST_limit": 10.0, "setup.ice-type": "constant",
+    "setup.atmosphere-type": "constant", "setup.ocean-type": "constant", "ideal_simul.constant_wind_u": 10.0,
+    "simul.spinup_duration": 0.0, "wave_coupling.num_fsd_bins": 6, "wave_coupling.welding_type": "roach",
+}
 K = 3
 # the chunk's steps start at 23:53:20, 23:56:40 (the day's last step:
 # is_day_end) and 00:00:00 (the next day's first: is_day_start)
@@ -233,12 +245,49 @@ def test_step_program_reads_nothing_back(over, tmp_path):
 # the configurations that keep the eager loop
 # ---------------------------------------------------------------------------
 
+def test_roach_welding_body_reads_nothing_back(tmp_path, monkeypatch):
+    """FSD Roach welding with thermodynamics, a broken area seeded from numpy:
+    ``_chunk_body`` with the welding dispatched to the kernel's launch (a
+    stand-in here) reads nothing back, welds (the ice grows at the second
+    step) and equals the body with the plain version, bitwise; the
+    configuration is captured on the card (no eager reason)."""
+    from nextsim_tpu_torch.ops import fsd as pfsd
+    from nextsim_tpu_torch.ops import welding_cuda
+    from test_torch_welding import emulate_kernel
+
+    over = dict(WELDING, **{"output.exporter_path": str(tmp_path)})
+    psim = PSimulator(PConfig(overrides=over), device="cpu")
+    assert psim.eager_reason is None
+    cf = psim.state.conc_fsd
+    w = torch.as_tensor(np.random.default_rng(8).uniform(0.0, 1.0, cf.shape), dtype=cf.dtype)
+    psim.state = psim.state.replace(conc_fsd=w / w.sum(0) * cf.sum(0))
+    k = 2
+    forcings = [psim.forcing_provider(psim.current_time + (i + 1) * psim.dt / 86400.0, psim.time_init)
+                for i in range(k)]
+    flags = psim.time_flags([psim.time_info_at(psim.current_time + i * psim.dt / 86400.0) for i in range(k)])
+    plain = psim._chunk_body(psim.state, forcings, flags, None, psim._wim_diag())
+    active = []
+
+    def launch(conc_fsd, out, ctot, c_broken, freezing, *rest):
+        active.append(freezing & (c_broken > 0.01) & (ctot > 0.1))
+        emulate_kernel(conc_fsd, out, ctot, c_broken, freezing, *rest)
+
+    monkeypatch.setattr(pfsd, "_kernel_for", lambda t: True)
+    monkeypatch.setattr(welding_cuda, "_launch", launch)
+    with _NoReadBack():
+        state, diag, viol, acc, last = psim._chunk_body(psim.state, forcings, flags, None, psim._wim_diag())
+    assert len(active) == k and int(active[-1].sum()) > 0
+    for f in state.__dataclass_fields__:
+        a, b = getattr(plain[0], f), getattr(state, f)
+        assert (a is None) == (b is None) and (a is None or torch.equal(a, b)), f
+    assert int(viol.sum()) == 0
+
+
 def test_eager_configurations_name_and_log_their_reason(tmp_path, caplog):
     base = dict(SLICES["toy_square32_thermo"], **{"dynamics.substeps": 10,
                                                  "output.exporter_path": str(tmp_path)})
-    roach = dict(base, **{"wave_coupling.num_fsd_bins": 6, "wave_coupling.welding_type": "roach"})
     member = dict(base, **{"statevector.ensemble_member": 1})
-    for over, words in ((roach, "Roach welding"), (member, "perturbed ensemble member")):
+    for over, words in ((member, "perturbed ensemble member"),):
         sim = PSimulator(PConfig(overrides=over), device="cpu")
         assert words in sim.eager_reason
         caplog.clear()

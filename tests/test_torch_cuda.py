@@ -51,6 +51,17 @@ a bad member stride is refused by the kernel itself. The batched ensemble
 step captured as a CUDA graph equals the eager batched step and the member
 loop ``step_members`` bitwise, at 464^2 thermo on.
 
+Roach welding (csrc/welding_roach.cu, ``welding_cuda``): the kernel equals
+the plain version ``fsd.welding_roach_reference`` bitwise in float32,
+float64 and bfloat16, with unscaled areas (every active cell to the cap of
+256 substeps) and scaled ones (counts of their own), in one launch; one
+launch on a member-minor stack equals a launch a member; a kernel built for
+another bin count refuses the call; a chunk of the FSD configuration
+captured as a CUDA graph equals the eager loop bitwise and replays the
+welding launch; the gradient through ``WeldingRoach`` equals plain autograd
+and is not the identity; the batched ensemble step with welding equals
+``step_members`` bitwise, one welding launch for all members.
+
 Reverse mode on the card (``momentum_cuda.SubstepLoop``): the gradient
 through ``substep_loop`` against straight autograd through the plain loop
 on the card, for the three rheologies in float32 and float64, and the
@@ -65,7 +76,7 @@ import torch
 
 from nextsim_tpu_torch import Config, Simulator
 from nextsim_tpu_torch.core.state import to_host
-from nextsim_tpu_torch.ops import momentum, momentum_cuda, thermo
+from nextsim_tpu_torch.ops import fsd, momentum, momentum_cuda, thermo, welding_cuda
 from nextsim_tpu_torch.parallel import seam
 
 pytestmark = pytest.mark.gpu
@@ -775,3 +786,168 @@ def test_captured_batched_step_equals_eager_and_the_member_loop(cuda, dyn_type):
     assert len(ens[0]._program.graphs) == 1 and not ens[1]._program.graphs
     assert ens[0]._program.stats["kernel_launches"] == per_loop and not ens[0].violations.any()
     assert not torch.equal(ens[0].member_state(1).vt_u, ens[0].member_state(2).vt_u)
+
+
+# ---------------------------------------------------------------------------
+# Roach welding
+# ---------------------------------------------------------------------------
+
+WELD_BINS = 6
+WELD_DT = 900.0
+# 24^2 of full ice with thermodynamics and a 6-bin FSD with Roach welding:
+# the ice grows at the second step, where welding acts on broken floes
+WELD_SIM = {
+    "grid.preset": "square", "grid.nx": 24, "grid.ny": 24, "grid.resolution": 10e3,
+    "simul.timestep": 200, "simul.time_init": "2015-10-16 00:00:00", "dynamics.substeps": 20,
+    "thermo.use_thermo_forcing": True, "ideal_simul.init_SST_limit": 10.0, "setup.ice-type": "constant",
+    "setup.atmosphere-type": "constant", "setup.ocean-type": "constant", "ideal_simul.constant_wind_u": 10.0,
+    "simul.spinup_duration": 0.0, "wave_coupling.num_fsd_bins": WELD_BINS, "wave_coupling.welding_type": "roach",
+}
+
+
+def _weld_params(scaled=False, n=WELD_BINS):
+    p = fsd.FSDParams(num_bins=n, bin_cst_width=40.0, welding_type="roach", welding_use_scaled_area=scaled)
+    return p, fsd.make_bins(p)
+
+
+def _weld_stack(seed, dtype_name, shape=(48, 48), n=WELD_BINS):
+    """An FSD with open water, unbroken, empty and broken cells and a
+    freezing mask, on the card: (conc_fsd, freezing)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ctot = rng.uniform(0.0, 1.0, shape) * (rng.uniform(0, 1, shape) > 0.2)
+    w = rng.uniform(0.0, 1.0, (n,) + shape) ** 3
+    unbroken = rng.uniform(0, 1, shape) > 0.7
+    w[:-1, unbroken] = 0.0
+    w[-1, unbroken] = 1.0
+    cf = w / w.sum(0) * ctot
+    dtype = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}[dtype_name]
+    return (torch.tensor(cf, dtype=dtype, device="cuda"),
+            torch.as_tensor(rng.uniform(0, 1, shape) > 0.3, device="cuda"))
+
+
+def _seed_broken(states, seed=8):
+    """Member-first FSD stacks spread over the bins from a numpy seed."""
+    import numpy as np
+
+    cf = states.conc_fsd
+    w = torch.as_tensor(np.random.default_rng(seed).uniform(0.0, 1.0, cf.shape), dtype=cf.dtype, device=cf.device)
+    axis = 1 if cf.ndim == 4 else 0
+    return states.replace(conc_fsd=(w / w.sum(axis, keepdim=True) * cf.sum(axis, keepdim=True)).contiguous())
+
+
+def _same(a, b):
+    """Bitwise equal where a value is a number, NaN in the same places
+    (unscaled areas overflow in a few cells of these random stacks, in the
+    plain version as in the kernel)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a.masked_fill(nan, 0), b.masked_fill(nan, 0))
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("dtype_name", ["float32", "float64", "bfloat16"])
+def test_welding_kernel_equals_plain(cuda, dtype_name, scaled):
+    p, bins = _weld_params(scaled)
+    cf, freezing = _weld_stack(1, dtype_name)
+    launches = welding_cuda.launches
+    out = fsd.welding_roach(cf, WELD_DT, p, bins, freezing)
+    assert welding_cuda.launches == launches + 1
+    ref = fsd.welding_roach_reference(cf, WELD_DT, p, bins, freezing)
+    active = freezing & (cf[:-1].sum(0) > 0.01) & (cf.sum(0) > 0.1)
+    assert int(active.sum()) > 100 and not torch.equal(ref, cf)
+    assert out.dtype == cf.dtype and _same(out, ref)
+    assert float(torch.isfinite(ref).float().mean()) > 0.99
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64", "bfloat16"])
+def test_batched_welding_launch_equals_single_launches(cuda, dtype_name):
+    p, bins = _weld_params(True)
+    members = [_weld_stack(seed, dtype_name, shape=(24, 24)) for seed in (2, 3, 4)]
+    cf = torch.stack([c for c, _ in members], dim=1)
+    freezing = torch.stack([f for _, f in members])
+    launches = welding_cuda.launches
+    out = fsd.welding_roach(cf, WELD_DT, p, bins, freezing)
+    assert welding_cuda.launches == launches + 1
+    for m, (c, f) in enumerate(members):
+        assert torch.equal(out[:, m], fsd.welding_roach(c, WELD_DT, p, bins, f)), m
+    assert torch.equal(out, fsd.welding_roach_reference(cf, WELD_DT, p, bins, freezing))
+
+
+def test_welding_kernel_refuses_another_bin_count(cuda, monkeypatch):
+    """A library is built for one bin count: called with another, the
+    kernel itself refuses (cudaErrorInvalidValue), and nothing is counted."""
+    six = welding_cuda._library(WELD_BINS)
+    assert six.nextsim_welding_nbins() == WELD_BINS
+    monkeypatch.setattr(welding_cuda, "_library", lambda n: six)
+    p, bins = _weld_params(n=WELD_BINS + 1)
+    cf, freezing = _weld_stack(5, "float32", n=WELD_BINS + 1)
+    launches = welding_cuda.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        fsd.welding_roach(cf, WELD_DT, p, bins, freezing)
+    assert welding_cuda.launches == launches
+
+
+def test_welding_gradient_on_the_card(cuda):
+    """float64: the gradient through WeldingRoach (the kernel forward) equals
+    straight autograd through the plain version on the card, bitwise, and
+    welding moves it away from the identity."""
+    p, bins = _weld_params(True)
+    cf, freezing = _weld_stack(6, "float64", shape=(24, 24))
+    w = torch.rand(cf.shape, dtype=cf.dtype, device="cuda", generator=torch.Generator("cuda").manual_seed(3))
+
+    def grad_of(fn):
+        leaf = cf.clone().requires_grad_(True)
+        out = fn(leaf)
+        (g,) = torch.autograd.grad((out * w).sum(), leaf)
+        return out, g
+
+    launches = welding_cuda.launches
+    out, got = grad_of(lambda x: fsd.welding_roach(x, WELD_DT, p, bins, freezing))
+    assert welding_cuda.launches == launches + 1 and type(out.grad_fn).__name__ == "WeldingRoachBackward"
+    ref, plain = grad_of(lambda x: fsd.welding_roach_reference(x, WELD_DT, p, bins, freezing))
+    assert torch.equal(out.detach(), ref.detach()) and torch.equal(got, plain)
+    assert float((got - w).abs().max()) > 1e-6
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64", "bfloat16"])
+def test_captured_welding_chunk_equals_the_eager_loop(cuda, dtype_name):
+    """The FSD configuration (no eager reason now): two 2-step chunks, the
+    second a replay, equal the eager loop bitwise; the graph holds one
+    welding launch a step, and welding acts."""
+    over = dict(WELD_SIM, **{"tpu.dtype": dtype_name})
+    a = Simulator(Config(overrides=over), device="cuda")
+    b = Simulator(Config(overrides=over), device="cuda")
+    assert a.eager_reason is None
+    a.state = _seed_broken(a.state)
+    b.state = _seed_broken(b.state)
+    before = a.state.conc_fsd.clone()
+    for chunk in range(2):
+        launches = welding_cuda.launches
+        a.step_chunk(2)
+        assert welding_cuda.launches == launches + 2, chunk
+        b.step_chunk_eager(2)
+        _equal_states(a.state, b.state, f"chunk {chunk}")
+    assert len(a._program.graphs) == 1 and a._program.stats["welding_launches"] == 2
+    assert not torch.equal(a.state.conc_fsd, before)
+
+
+def test_batched_step_with_welding_equals_the_member_loop(cuda):
+    """3 members (the control and 2 perturbed) of the FSD configuration, 3
+    steps: the batched step (one graph replay) equals ``step_members``
+    bitwise, every member; a batched step launches the welding kernel once
+    for all members, the member loop once a member."""
+    from nextsim_tpu_torch.ensemble.batched import BatchedEnsemble
+
+    a = BatchedEnsemble(Config(overrides=WELD_SIM), 3, device="cuda")
+    b = BatchedEnsemble(Config(overrides=WELD_SIM), 3, device="cuda")
+    a.states = _seed_broken(a.states)
+    b.states = _seed_broken(b.states)
+    for step in range(3):
+        for run, want in ((a.step, 1), (b.step_members, 3)):
+            launches = welding_cuda.launches
+            run()
+            assert welding_cuda.launches == launches + want, step
+        for k in range(3):
+            _equal_states(a.member_state(k), b.member_state(k), f"step {step}, member {k}")
+    assert len(a._program.graphs) == 1 and a._program.stats["welding_launches"] == 1

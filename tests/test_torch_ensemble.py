@@ -25,9 +25,15 @@ counterpart of the JAX package's vmapped ``_vstep``; one graph replay on the
 card, tests/test_torch_cuda.py) against the member loop ``step_members``:
 bitwise for bbm, evp and mevp, thermo on, in float32 and float64 (3
 members, 3 steps); its body reads nothing back from the device (the
-dispatch-mode check of tests/test_torch_chunk.py); and a configuration
-that keeps the member loop (FSD Roach welding) logs its reason once and
-runs the loop.
+dispatch-mode check of tests/test_torch_chunk.py). Every configuration runs
+the batched step, as the JAX package vmaps every one: FSD Roach welding
+(a broken area seeded from numpy, welding active), the WIM, the coupler and
+nesting (neither package runs their exchanges per member: the step takes
+the provider's forcing) each equal the member loop bitwise in float32 and
+float64 (3 members, 3 steps, bbm), and ``step`` never calls
+``step_members``; the Roach welding and the nesting ensembles equal the JAX
+package's ``BatchedEnsemble`` within 1e-9 of each field's magnitude in
+float64 (2 members, on JAX's draws).
 """
 
 import dataclasses
@@ -302,7 +308,7 @@ def test_batched_ensemble_matches_jax(jax_runs, monkeypatch):
     ens.states = ens.states.replace(**{k: torch.stack([getattr(init, k)] * 3) for k in jax_runs.init})
     inject(monkeypatch, ens._pert, dict(zip(ens.generators, (jax_runs.stacks[1], jax_runs.stacks[2]))))
     ens.run(STEPS)
-    assert ens.loop_reason is None  # the batched step, JAX's vmapped _vstep
+    assert ens._program.capture  # the batched step, JAX's vmapped _vstep (a graph on the card)
     assert tuple(ens.violations.shape) == (3, len(CELL_BOUNDS + YOUNG_BOUNDS) + 1) and not ens.violations.any()
     for k in range(3):
         assert_states_close(jax_runs.members[k], state_to_numpy(ens.member_state(k)), 1e-9, f"member {k}")
@@ -336,7 +342,7 @@ def test_batched_step_equals_the_member_loop_bitwise(dyn_type, dtype_name):
     over = dict(ENS, **{"setup.dynamics-type": dyn_type, "tpu.dtype": dtype_name})
     a = PBatchedEnsemble(PConfig(overrides=over), 3, device="cpu")
     b = PBatchedEnsemble(PConfig(overrides=over), 3, device="cpu")
-    assert a.loop_reason is None
+    assert a._program.capture
     for _ in range(STEPS):
         a.step()
         b.step_members()
@@ -360,29 +366,135 @@ def test_batched_step_reads_nothing_back():
     assert bool(torch.isfinite(states.vt_u).all())
 
 
-def test_member_loop_configuration_logs_its_reason(caplog, monkeypatch):
-    """FSD Roach welding reads back: the ensemble steps its members one by
-    one, says why once, and never calls the batched step."""
-    over = dict(ENS, **{"dynamics.substeps": 10, "wave_coupling.num_fsd_bins": 6,
-                        "wave_coupling.welding_type": "roach"})
+# ---------------------------------------------------------------------------
+# every configuration runs the batched step
+# ---------------------------------------------------------------------------
+
+# ENS with 20 substeps (dte = 10 s), bbm, and a 6-bin FSD; the ice grows at
+# the second step, where welding acts on the seeded broken floes
+WELD = dict(ENS, **{"dynamics.substeps": 20, "wave_coupling.num_fsd_bins": 6,
+                    "wave_coupling.welding_type": "roach"})
+CONFIGS = {
+    "roach": WELD,
+    "wim": dict(WELD, **{"nextwim.use_wim": True, "nextwim.couplingfreq": 2, "wimsetup.nwavefreq": 5,
+                         "wimsetup.nwavedirn": 8, "wave_coupling.fsd_damage_type": 1}),
+    "coupler": dict(ENS, **{"dynamics.substeps": 20, "coupler.with_waves": True, "coupler.timestep": 1200}),
+}
+
+
+def seed_broken_floes(ens, seed=8):
+    """Spread each member's ice over the bins from a numpy seed: broken
+    floes for welding to act on."""
+    cf = ens.states.conc_fsd
+    w = torch.as_tensor(np.random.default_rng(seed).uniform(0.0, 1.0, cf.shape), dtype=cf.dtype)
+    ens.states = ens.states.replace(conc_fsd=(w / w.sum(1, keepdim=True) * cf.sum(1, keepdim=True)).contiguous())
+
+
+def config_of(name, tmp_path, dtype_name):
+    if name == "nesting":
+        from test_torch_nesting import nested_config, write_nesting_files
+
+        write_nesting_files(str(tmp_path))
+        over = nested_config(tmp_path, **{"setup.dynamics-type": "bbm", "dynamics.substeps": 90})
+    else:
+        over = CONFIGS[name]
+    return dict(over, **{"tpu.dtype": dtype_name, "output.exporter_path": str(tmp_path / "out")})
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+@pytest.mark.parametrize("name", ["roach", "wim", "coupler", "nesting"])
+def test_batched_step_equals_the_member_loop_in_every_configuration(name, dtype_name, tmp_path, monkeypatch):
+    """3 members, 3 steps: the batched step (``step``) against the member
+    loop (``step_members``), bitwise, every member; ``step`` never calls
+    ``step_members``; with an FSD, welding acts in the batched step."""
+    from nextsim_tpu_torch.ops import fsd as pfsd
+
+    over = config_of(name, tmp_path, dtype_name)
+    a = PBatchedEnsemble(PConfig(overrides=over), 3, device="cpu")
+    b = PBatchedEnsemble(PConfig(overrides=over), 3, device="cpu")
+    assert a._program.capture and a.sim.eager_reason is None
+    if a.sim.fsd_params is not None:
+        seed_broken_floes(a)
+        seed_broken_floes(b)
+    welded = []
+    plain = pfsd.welding_roach_reference
+
+    def spy(cf, *args):
+        out = plain(cf, *args)
+        welded.append((cf.ndim, not torch.equal(out, cf)))
+        return out
+
+    monkeypatch.setattr(pfsd, "welding_roach_reference", spy)
+
+    def refuse():
+        raise AssertionError("BatchedEnsemble.step ran the member loop")
+
+    loop = b.step_members
+    monkeypatch.setattr(a, "step_members", refuse)
+    for _ in range(STEPS):
+        a.step()
+        loop()
+    assert a.pcpt == b.pcpt == STEPS and tuple(a.violations.shape)[0] == 3 and not a.violations.any()
+    for k in range(3):
+        assert_states_equal(state_to_numpy(a.member_state(k)), state_to_numpy(b.member_state(k)), f"member {k}")
+    assert not torch.equal(a.member_state(1).sst, a.member_state(2).sst)
+    if name in ("roach", "wim"):
+        assert (4, True) in welded  # a batched (nbins, N, ny, nx) stack welded
+
+
+def test_violations_count_each_members_owned_cells():
+    """On an ext block of a device mesh (a corner block of 2 x 2, rings of 3
+    cells): the flags are (N, checks), each member's own, and a NaN in a
+    ring cell counts for nobody."""
+    from nextsim_tpu_torch.core.state import member_minor
+    from nextsim_tpu_torch.model import checks
+    from nextsim_tpu_torch.parallel.seam import BlockLayout
+
+    ens = PBatchedEnsemble(PConfig(overrides=dict(ENS)), 3, device="cpu")
+    lay = BlockLayout(24, 24, 2, 2, 0, 0, 3)
+    block = lay.to_ext(member_minor(ens.states))
+    assert tuple(block.conc.shape) == (3, 15, 15) and tuple(block.tice.shape) == (3, 3, 15, 15)
+    conc = block.conc.clone()
+    conc[1, 13, 5] = float("nan")  # a ring cell of member 1 (rows 12.. are the ring)
+    conc[2, 4, 5] = float("nan")  # an owned cell of member 2
+    flags = checks.violations(block.replace(conc=conc), owned=lay.owned, members=True)
+    n_checks = len(CELL_BOUNDS + YOUNG_BOUNDS) + 1
+    assert tuple(flags.shape) == (3, n_checks)
+    at = [name for name, *_ in CELL_BOUNDS].index("conc")
+    assert flags[:, at].tolist() == [0, 0, 1] and int(flags.sum()) == 1
+
+
+@pytest.mark.parametrize("name", ["roach", "nesting"])
+def test_batched_ensemble_matches_jax_in_more_configurations(name, tmp_path, monkeypatch):
+    """float64, 2 members (the control and member 1 on JAX's draws), 3
+    steps: the port's batched step against the JAX package's vmapped
+    ``_vstep``, every member within 1e-9 of each field's magnitude."""
+    over = config_of(name, tmp_path, "float64")
+    if name == "roach":
+        over["dynamics.substeps"] = 60
+    with jax.enable_x64(True):
+        jens = JBatchedEnsemble(JConfig(overrides=over), n_members=2)
+        if name == "roach":
+            cf = np.asarray(jens.states.conc_fsd)
+            w = np.random.default_rng(8).uniform(0.0, 1.0, cf.shape)
+            jens.states = jens.states.replace(conc_fsd=jnp.asarray(w / w.sum(1, keepdims=True)
+                                                                   * cf.sum(1, keepdims=True)))
+        init = jax_to_numpy(jens.member_state(0))
+        seeded = np.asarray(jens.states.conc_fsd) if name == "roach" else None
+        stacks = jax_stacks(jens._pert, 1, STEPS)
+        jens.run(STEPS)
+        ref = [jax_to_numpy(jens.member_state(k)) for k in range(2)]
     ens = PBatchedEnsemble(PConfig(overrides=over), 2, device="cpu")
-    assert "Roach welding" in ens.loop_reason and ens.loop_reason == ens.sim.member_loop_reason()
-
-    def refuse(*args):
-        raise AssertionError("the batched step ran")
-
-    monkeypatch.setattr(ens.sim, "batched_step_fn", refuse)
-    caplog.clear()
-    with caplog.at_level(logging.INFO, logger="nextsim_tpu"):
-        ens.run(2)
-    logged = [r.getMessage() for r in caplog.records if "one by one" in r.getMessage()]
-    assert len(logged) == 1 and "Roach welding" in logged[0], logged
-    assert ens.pcpt == 2 and ens.violations is None
-    assert bool(torch.isfinite(ens.states.conc_fsd).all())
-    monkeypatch.undo()
-    with pytest.raises(ValueError, match="one by one"):
-        ens.sim.batched_step_fn(ens.states, ens.sim.forcing_provider(ens.current_time, ens.sim.time_init),
-                                ens.sim.time_info())
+    start = state_from_numpy(init, device="cpu")
+    ens.states = ens.states.replace(**{k: torch.stack([getattr(start, k)] * 2) for k in init})
+    if seeded is not None:
+        ens.states = ens.states.replace(conc_fsd=torch.from_numpy(seeded.copy()))
+    inject(monkeypatch, ens._pert, {ens.generators[0]: stacks})
+    ens.run(STEPS)
+    for k in range(2):
+        assert_states_close(ref[k], state_to_numpy(ens.member_state(k)), 1e-9, f"{name} member {k}")
+    if seeded is not None:
+        assert not np.allclose(ref[1]["conc_fsd"], seeded[1])
 
 
 # ---------------------------------------------------------------------------

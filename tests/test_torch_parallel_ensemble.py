@@ -10,6 +10,9 @@ tests/torch_mesh_worker.py); the counterparts of tests/test_extensions.py's
   equals the unsharded port ensemble's BITWISE (the JAX tests allow 2e-5:
   their sharded program fuses otherwise); so do the ensemble mean and the
   spread, and the AR(1) carry and generators gathered from the groups.
+  Every layout runs the batched step (``Simulator.batched_step_fn``) once a
+  step, the block layouts with every member's strips in one ring, and
+  never the member loop.
 * A checkpoint written under ``(4,)`` restores into the unsharded ensemble,
   and one written unsharded into ``(4,)``: the states equal, and one more
   step stays equal, bitwise. The checkpoint is one npz of global planes.
@@ -124,6 +127,12 @@ def test_member_mesh_equals_unsharded(name, runs):
         for k in ("noise_ran", "noise_generators"):
             np.testing.assert_array_equal(got[k], at3[k], err_msg=k)
     assert not np.array_equal(got["1_vt_u"], got["0_vt_u"])  # the perturbed member moved otherwise
+
+
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_member_mesh_runs_the_batched_step(name, runs):
+    got = runs[0][name]
+    assert int(got["__batched_calls"]) == STEPS and int(got["__loop_calls"]) == 0
 
 
 def test_checkpoint_from_member_mesh_into_unsharded(runs):

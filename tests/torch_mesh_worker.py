@@ -316,7 +316,8 @@ def ensemble_cases(cases, out_dir):
     ``BatchedEnsemble`` of ``n`` members (seed 5) on the member mesh
     ``mesh``, from the checkpoint ``read`` when given, run ``steps`` steps,
     its checkpoint ``write`` when given; rank 0 saves every member's state,
-    the mean of conc and vt_u, the spread and the noise arrays."""
+    the mean of conc and vt_u, the spread, the noise arrays and how often
+    the steps called the batched step and the member loop."""
     from nextsim_tpu_torch.ensemble.batched import BatchedEnsemble
 
     torch.set_num_threads(1)
@@ -324,6 +325,16 @@ def ensemble_cases(cases, out_dir):
         ens = BatchedEnsemble(Config(overrides=over), n, device="cpu", mesh=mesh, seed=5)
         if read:
             ens.read_restart(read)
+        calls = {"batched": 0, "loop": 0}
+
+        def counted(fn, key):
+            def call(*args):
+                calls[key] += 1
+                return fn(*args)
+            return call
+
+        ens.sim.batched_step_fn = counted(ens.sim.batched_step_fn, "batched")
+        ens.step_members = counted(ens.step_members, "loop")
         ens.run(steps)
         if write:
             ens.write_restart(write)
@@ -334,4 +345,5 @@ def ensemble_cases(cases, out_dir):
         arrays.update({f"mean_{k}": v.numpy() for k, v in (("conc", mean.conc), ("vt_u", mean.vt_u))})
         arrays.update({f"noise_{k}": v for k, v in ens._noise_arrays().items()})
         _save(out_dir, name, dict(arrays, **{f"spread_{k}": np.float64(v) for k, v in ens.spread().items()},
-                                  __pcpt=ens.pcpt))
+                                  __pcpt=ens.pcpt, __batched_calls=calls["batched"],
+                                  __loop_calls=calls["loop"]))
