@@ -76,8 +76,9 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    below the last bin where the WIM broke floes, dmax and tauwix in the
    moorings file, the spectrum and the bins in the restart; ms/step beside
    phase 11's, and each WIM exchange's wall and device time; the run's
-   chunks are graph replays (Roach welding is one kernel launch, nothing
-   read back), one welding launch a step. At the phase's end (after 16):
+   chunks are graph replays (Roach welding is one call of its kernel: a
+   memset and two launches, nothing read back), one welding call a step.
+   At the phase's end (after 16):
    a 20-step chunk between WIM exchanges from one state, ``step_chunk_eager``
    and ``step_chunk`` (one graph replay) in turns, bitwise equal; ms/step
    of each, the graph's nodes, capture and instantiation seconds, pool,
@@ -96,8 +97,8 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    the phase-14 state with the step's own freezing mask, with every cell
    freezing (every active cell to the cap of 256 substeps) and with broken
    floes spread from a numpy seed under the own mask: active cells, the
-   kernel's CUDA-event time in one launch, its bound and the plain
-   version's time of each;
+   kernel's CUDA-event time in one call (two launches), its bound and the
+   plain version's time of each;
 17. the coupled run: the same configuration with ``coupler.with_waves`` on a
    260x260 exchange grid and a prescribed ``cpl_in.nc`` (wlbk, tauwix,
    tauwiy), through ``Simulator.run`` on the default device for 21 steps
@@ -129,9 +130,12 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    Roach welding on scaled areas, melt_type 3) on phase 14's last state
    with broken floes spread from numpy, 3 steps, the batched replay and
    ``step_members`` in turns, every member bitwise equal after every step,
-   welding's active cells printed (> 0); one welding launch on its
-   member-minor stack equals four single launches bitwise, timed in turns,
-   and the plain version bitwise in float32, float64 and bfloat16;
+   welding's active cells printed (> 0); one welding call on its
+   member-minor stack equals four single calls bitwise, timed in turns,
+   and the plain version bitwise in float32, float64 and bfloat16; the
+   kernel's time on the stacks and freezing masks that welding gets in
+   the loop's third step (the ensemble's state after two), bitwise the
+   plain version's;
 19b. the batched launch on phase 19's 608^2 x 4 state: against the 4
    single-member launches and the plain loop on the card, bitwise, for
    bbm, evp and mevp in float32, float64 and bfloat16 over 11 substeps; a
@@ -1556,7 +1560,7 @@ def welding_kernel_phase(sim, smi) -> dict:
             x = stack.to(getattr(torch, dtype_name)).contiguous()
             launches = welding_cuda.launches
             out = fsd_ops.welding_roach(x, sim.dt, fp, fb, freezing)
-            if welding_cuda.launches != launches + 1:
+            if welding_cuda.launches != launches + welding_cuda.LAUNCHES_A_CALL:
                 raise AssertionError(f"welding {label} {dtype_name}: {welding_cuda.launches - launches} launches")
             ref, plain_wall, plain_ms = timed_call(lambda: fsd_ops.welding_roach_reference(x, sim.dt, fp, fb, freezing))
             bound_ms, bound_by, bytes_ms, ops_ms, active = welding_bound_ms(x, freezing, sim.dt, fp, fb)
@@ -1569,14 +1573,17 @@ def welding_kernel_phase(sim, smi) -> dict:
             recs[(label, dtype_name)] = {"ms": ms, "plain_ms": plain_ms, "plain_wall_s": plain_wall, "max_abs_err": err,
                                          "bound_ms": bound_ms, "bound_by": bound_by, "active": active,
                                          "changed": not torch.equal(out, x)}
-            lines.append(f"{label} {dtype_name}: {active} active cells, kernel {ms:.4f} ms in 1 launch, plain "
+            lines.append(f"{label} {dtype_name}: {active} active cells, kernel {ms:.4f} ms in one call, plain "
                          f"{plain_ms:.1f} ms; bound {bound_ms:.4f} ms by {bound_by} (bytes {bytes_ms:.4f}, "
                          f"operations {ops_ms:.4f}), {100 * bound_ms / ms:.1f}% of it")
     for label in ("every cell freezing", "spread floes, own mask"):
         if recs[(label, "float32")]["active"] == 0 or not recs[(label, "float32")]["changed"]:
             raise AssertionError(f"welding {label}: no active cell, or nothing welded")
+    # ptxas of the build this process made (at the wave run's first step)
+    ptxas = [ln.strip() for ln in welding_cuda.build_log.splitlines() if "registers" in ln or "spill" in ln]
     phase("welding", f"the welding kernel against the plain version on the phase-14 608^2 x {fp.num_bins}-bin state, "
-          f"bitwise in every dtype and case (NaN in the same places): {'; '.join(lines)}; {smi}")
+          f"bitwise in every dtype and case (NaN in the same places): {'; '.join(lines)}; ptxas (both kernels, "
+          f"each dtype): {' | '.join(ptxas) or 'cached'}; {smi}")
     rec = dict(recs[("every cell freezing", "float32")])
     rec["by_case"] = {f"{label}, {d}": r for (label, d), r in recs.items()}
     return rec
@@ -1630,7 +1637,8 @@ def wave_captured(sim, smi) -> dict:
             if a is not None and not torch.equal(a, b):
                 raise AssertionError(f"wave path: run {n}: {f} of the captured chunk is not the eager loop's bitwise")
     per_loop = momentum_cuda.launches_for(sim.dyn.substeps, *sim.grid.shape)
-    if replay != (k * per_loop, k) or (stats["kernel_launches"], stats["welding_launches"]) != replay:
+    if replay != (k * per_loop, k * welding_cuda.LAUNCHES_A_CALL) or (
+            stats["kernel_launches"], stats["welding_launches"]) != replay:
         raise AssertionError(f"wave path: a replay launched {replay}, its graph holds {stats}")
     ms = {mode: 1e3 * min(w) / k for mode, w in walls.items()}
     phase("waves", f"the wave path captured: {k}-step chunks between WIM exchanges from step {pcpt0}, in turns "
@@ -1793,7 +1801,8 @@ def coupled_run(tmp: Path, out: Path, smi: str):
                              f"replays {host['replays']})")
     launches = momentum_cuda.launches
     expect = momentum_cuda.launches_for(sim.dyn.substeps, *sim.grid.shape) * COUPLED_STEPS
-    if sim.pcpt != COUPLED_STEPS or launches != expect or welding_cuda.launches != COUPLED_STEPS:
+    if (sim.pcpt != COUPLED_STEPS or launches != expect
+            or welding_cuda.launches != COUPLED_STEPS * welding_cuda.LAUNCHES_A_CALL):
         raise AssertionError(f"coupled run: {sim.pcpt} steps, {launches} kernel launches, expected {expect}, "
                              f"{welding_cuda.launches} welding launches")
     _finite_state(sim.state, "coupled run")
@@ -1880,7 +1889,7 @@ def wave_phases(tmp: Path, smi: str, dataset_ms: float, path_launches: dict, wel
     welding_cuda.launches = 0
     sim, path_launches["waves"] = wave_cli_run(tmp, tmp / "wave_run", smi, dataset_ms)
     weld_launches["wave"] = welding_cuda.launches
-    if weld_launches["wave"] != WAVE_STEPS:
+    if weld_launches["wave"] != WAVE_STEPS * welding_cuda.LAUNCHES_A_CALL:
         raise AssertionError(f"wave path: {weld_launches['wave']} welding launches in {WAVE_STEPS} steps")
     wave_err = wave_kernel_vs_plain(sim)
     waves_vs_cpu(sim, smi)
@@ -2103,13 +2112,15 @@ def welding_ensemble_phase(tmp: Path, smi: str, wave_state: dict, provider) -> d
     WELD_ENSEMBLE, every member on phase 14's last state with broken floes
     spread from its own numpy seed, WELD_ENSEMBLE_STEPS steps, each twice
     from one state in turns: the batched step (one graph replay: the
-    substep kernel's launches and one welding launch for all members) and
+    substep kernel's launches and one welding call for all members) and
     the member loop ``step_members`` (eager), every member equal bitwise
     after every step, the loop's welding active cells printed (> 0). Then
     the welding kernel on the ensemble's member-minor stack (20, 4, 608,
-    608), every cell freezing: one launch equals four single-member
-    launches and the plain version bitwise (every dtype); times of each in
-    turns. ``provider`` is phase 19's
+    608), every cell freezing: one call equals four single-member calls
+    and the plain version bitwise (every dtype); times of each in turns;
+    and its time on the stacks and masks that welding gets in the loop's
+    third step (the real state after two steps), bitwise the plain
+    version's. ``provider`` is phase 19's
     forcing provider (the same grid and files), taken in place of a second
     set of dataset readers, whose weights cost ~40 s to build. Returns the
     record and the launches of both kernels."""
@@ -2157,8 +2168,12 @@ def welding_ensemble_phase(tmp: Path, smi: str, wave_state: dict, provider) -> d
     active = []
     plain_weld = fsd_ops.welding_roach
 
+    real = []  # what welding gets in the loop's third step: each member's stack and mask
+
     def counted_weld(x, dt, p, bins, freezing):
         active[-1] += int((freezing & (x[:-1].sum(0) > 0.01) & (x.sum(0) > 0.1)).sum())
+        if len(active) == 3:
+            real.append((x.clone(), freezing.clone()))
         return plain_weld(x, dt, p, bins, freezing)
 
     def timed(mode):
@@ -2191,7 +2206,9 @@ def welding_ensemble_phase(tmp: Path, smi: str, wave_state: dict, provider) -> d
             raise AssertionError(f"welding ensemble step {i}: the batched step and the member loop differ in "
                                  f"{differ or 'the AR(1) carry'}")
     steps = WELD_ENSEMBLE_STEPS
-    if counts["batched"] != [per_batched * steps, steps] or counts["loop"] != [n * per_loop * steps, n * steps]:
+    per_call = welding_cuda.LAUNCHES_A_CALL
+    if counts["batched"] != [per_batched * steps, steps * per_call] or counts["loop"] != [
+            n * per_loop * steps, n * steps * per_call]:
         raise AssertionError(f"welding ensemble: launches (substep, welding) {counts}")
     if sum(active) == 0:
         raise AssertionError("welding ensemble: welding acted on no cell")
@@ -2199,16 +2216,16 @@ def welding_ensemble_phase(tmp: Path, smi: str, wave_state: dict, provider) -> d
         _finite_state(ens.member_state(k), f"welding ensemble member {k}")
     graph = ens._program.stats
 
-    # the welding kernel on the member-minor stack: one launch against a
-    # launch a member, in turns
+    # the welding kernel on the member-minor stack: one call against a
+    # call a member, in turns
     x = member_minor(ens.states).conc_fsd
     freezing = torch.ones(tuple(x.shape[1:]), dtype=torch.bool, device="cuda")
     fp, fb, dt = ens.sim.fsd_params, ens.sim.fsd_bins, ens.sim.dt
     singles = [(x[:, m].contiguous(), freezing[m].contiguous()) for m in range(n)]
     c0 = welding_cuda.launches
     out = fsd_ops.welding_roach(x, dt, fp, fb, freezing)
-    if welding_cuda.launches != c0 + 1:
-        raise AssertionError("welding ensemble: the member stack took more than one launch")
+    if welding_cuda.launches != c0 + welding_cuda.LAUNCHES_A_CALL:
+        raise AssertionError("welding ensemble: the member stack took more than one call")
     for m, (xm, fm) in enumerate(singles):
         if not same_bits(out[:, m], fsd_ops.welding_roach(xm, dt, fp, fb, fm)):
             raise AssertionError(f"welding ensemble: member {m} of the batched launch differs from its own launch")
@@ -2228,12 +2245,24 @@ def welding_ensemble_phase(tmp: Path, smi: str, wave_state: dict, provider) -> d
                 t_singles.append(event_ms(lambda: [fsd_ops.welding_roach(xm, dt, fp, fb, fm) for xm, fm in singles],
                                           reps=3))
     bound_ms, bound_by, _, _, n_active = welding_bound_ms(x, freezing, dt, fp, fb)
+    # the real state: the loop's third step's stacks and masks, member-minor
+    if len(real) != n:
+        raise AssertionError(f"welding ensemble: {len(real)} welding calls in the loop's third step")
+    x_real = torch.stack([xm for xm, _ in real], dim=1).contiguous()
+    f_real = torch.stack([fm for _, fm in real]).contiguous()
+    ref, _, real_plain_ms = timed_call(lambda: fsd_ops.welding_roach_reference(x_real, dt, fp, fb, f_real))
+    if not same_bits(fsd_ops.welding_roach(x_real, dt, fp, fb, f_real), ref):
+        raise AssertionError("welding ensemble: the kernel differs from the plain version on the real state")
+    real_ms = event_ms(lambda: fsd_ops.welding_roach(x_real, dt, fp, fb, f_real), reps=5)
+    real_bound_ms, real_bound_by, _, _, real_active = welding_bound_ms(x_real, f_real, dt, fp, fb)
     # ms/step of the steps after the first (the batched step's first captures)
     stat = {mode: (float(np.median(v[1:])), min(v[1:]), max(v[1:])) for mode, v in ms.items()}
     rec = {"ms_batched": stat["batched"], "ms_loop": stat["loop"], "launches": counts, "active_cells": active,
            "nodes": graph["nodes"], "capture_s": graph["capture_s"], "instantiate_s": graph["instantiate_s"],
            "pool_bytes": graph["pool_bytes"], "stack_ms": min(t_stack), "singles_ms": min(t_singles),
-           "stack_bound_ms": bound_ms, "stack_active": n_active, "stack_plain_ms": plain_ms, "init_s": init_s}
+           "stack_bound_ms": bound_ms, "stack_active": n_active, "stack_plain_ms": plain_ms, "init_s": init_s,
+           "real_ms": real_ms, "real_active": real_active, "real_bound_ms": real_bound_ms,
+           "real_bound_by": real_bound_by, "real_plain_ms": real_plain_ms}
     fmt = lambda v: f"{v[0]:.2f} ms/step (min {v[1]:.2f}, max {v[2]:.2f})"  # noqa: E731
     phase("ensemble", f"the welding ensemble: arctic_10km.cfg {ny}x{nx}, ERA5 + TOPAZ4 + ETOPO, thermo on, 20 FSD "
           f"bins with Roach welding on scaled areas, {n} members on phase 14's last state with broken floes spread "
@@ -2247,10 +2276,12 @@ def welding_ensemble_phase(tmp: Path, smi: str, wave_state: dict, provider) -> d
           f"{graph['capture_s']:.2f} s, instantiation {graph['instantiate_s']:.2f} s, pool "
           f"{graph['pool_bytes'] / 2**20:.1f} MiB, welding launches a replay {graph['welding_launches']}; the welding "
           f"kernel on the member-minor stack {tuple(x.shape)}, every cell freezing ({n_active} active cells): one "
-          f"launch {[round(t, 4) for t in t_stack]} ms against {n} single launches {[round(t, 4) for t in t_singles]} "
+          f"call {[round(t, 4) for t in t_stack]} ms against {n} single calls {[round(t, 4) for t in t_singles]} "
           f"ms (CUDA events, in turns), bitwise equal, and equal to the plain version bitwise in "
           f"{', '.join(WELDING_DTYPES)} (its time {json.dumps({k: round(v, 1) for k, v in plain_ms.items()})} ms); "
-          f"bound {bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / min(t_stack):.1f}% of it reached; {smi}")
+          f"bound {bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / min(t_stack):.1f}% of it reached; on the real "
+          f"state (the loop's third step's stacks and masks, {real_active} active cells) {real_ms:.4f} ms, bitwise "
+          f"the plain version ({real_plain_ms:.1f} ms), bound {real_bound_ms:.4f} ms by {real_bound_by}; {smi}")
     del ens
     torch.cuda.empty_cache()
     return rec
@@ -3010,6 +3041,7 @@ def mesh_waves_phase(tmp: Path, smi: str):
     import torch
 
     from nextsim_tpu_torch import Simulator, state_to_numpy
+    from nextsim_tpu_torch.ops.welding_cuda import LAUNCHES_A_CALL
     from nextsim_tpu_torch.parallel.distributed import run_world
 
     t_phase = time.perf_counter()
@@ -3047,9 +3079,9 @@ def mesh_waves_phase(tmp: Path, smi: str):
         raise AssertionError("mesh waves: the WIM broke no floes")
     if any(r["launches"] <= 0 for r in recs):
         raise AssertionError(f"mesh waves: a rank ran without the kernel: {[r['launches'] for r in recs]}")
-    if any(r["welding_launches"] != MESH_WAVE_STEPS for r in recs):
+    if any(r["welding_launches"] != MESH_WAVE_STEPS * LAUNCHES_A_CALL for r in recs):
         raise AssertionError(f"mesh waves: welding launches by rank {[r['welding_launches'] for r in recs]}, "
-                             f"not one a step")
+                             f"not one call ({LAUNCHES_A_CALL} launches) a step")
     kernel_err = recs[0]["kernel_err"]
     if kernel_err != 0.0:
         raise AssertionError(f"mesh waves: the kernel on rank 0's ext block is {kernel_err} off the plain loop")

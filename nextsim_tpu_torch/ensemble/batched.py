@@ -22,7 +22,7 @@ stack, the stacked forcing and the time flags. On the CPU the same body
 runs eagerly. Member m equals the member stepped alone bitwise.
 
 ``step`` runs the batched step for every configuration, as the JAX
-package's ``_vstep`` does: FSD Roach welding (one launch of its kernel for
+package's ``_vstep`` does: FSD Roach welding (one call of its kernel for
 all members), the WIM, the coupler and nesting (whose exchanges, received
 fields and outer runs are not run per member, in either package: the step
 takes the provider's forcing) and block layouts (below). ``step_members``

@@ -36,16 +36,16 @@ Two configurations keep the eager step loop (``step_eager``,
 their first step: a device mesh (its rings go through torch.distributed)
 and a perturbed ensemble member (its AR(1) chain draws from a
 torch.Generator, which the JAX package advances inside its chunk program).
-FSD Roach welding is one launch of a CUDA kernel on the card
-(``fsd.welding_roach``), which reads nothing back, so the wave path is
-captured too.
+FSD Roach welding is one call of a CUDA kernel on the card
+(``fsd.welding_roach``: a memset and two launches), which reads nothing
+back, so the wave path is captured too.
 
 ``batched_step_fn`` steps N members at once, the JAX package's ``jax.vmap``
 of the step that its batched ensemble jits (``ensemble/batched.py``), for
 every configuration: the step on a member-minor stack (a plane ``(N, ny,
 nx)``, or ``(N, ey, ex)`` ext blocks on a device mesh; ``tice``, ``sigma``
 and ``conc_fsd`` ``(c, N, ...)``), one substep loop of kernel launches and
-one welding launch for all members, the mesh's rings carrying every
+one welding call for all members, the mesh's rings carrying every
 member's strips in one exchange. The WIM, the coupler and nesting are not
 run per member there, as in the JAX package: the batched step takes the
 provider's forcing and no outer fields.

@@ -303,7 +303,7 @@ def welding_roach(conc_fsd, dt: float, p: FSDParams, bins: FSDBins, freezing):
     weldingRoach, fe.cpp:4720-4850), the JAX package's ``welding_roach``.
     A stack on the CPU runs ``welding_roach_reference``; on the card the
     CUDA kernel of csrc/welding_roach.cu runs it (``welding_cuda.
-    welding_roach``: one launch, nothing read back, a recorded gradient
+    welding_roach``: one call, nothing read back, a recorded gradient
     through ``welding_cuda.WeldingRoach``), or raises: nothing falls back
     to the plain loop there. ``conc_fsd`` is (nbins, ny, nx) or a batched
     ensemble's member-minor (nbins, N, ny, nx)."""

@@ -778,16 +778,22 @@ def build(flags=_NVCC_FLAGS) -> Path:
     return out
 
 
+def library_path(src: Path, stem: str, flags) -> Path:
+    """Where ``compile_library`` puts ``src`` built with ``flags``:
+    ``<stem>_<tag>.so`` in the build directory, the tag a hash of the
+    source and the flags."""
+    tag = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    return _BUILD_DIR / f"{stem}_{tag}.so"
+
+
 def compile_library(src: Path, stem: str, flags) -> tuple:
-    """``nvcc`` of ``src`` with ``flags`` into ``<stem>_<tag>.so`` in the
-    build directory, the tag a hash of the source and the flags, unless that
-    file is there: (its path, what nvcc printed, or None when it was
+    """``nvcc`` of ``src`` with ``flags`` into ``library_path``, unless
+    that file is there: (its path, what nvcc printed, or None when it was
     there). The ranks of a mesh that start together may each compile it
     (seconds for a file with a plain C interface); each writes its own
     temporary file and renames it into place, so every rank loads a whole
     library."""
-    tag = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    out = _BUILD_DIR / f"{stem}_{tag}.so"
+    out = library_path(src, stem, flags)
     if out.exists():
         return out, None
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,5 +1,5 @@
-"""Roach welding on the GPU: wrapper, plan table, gradient and loader of the
-CUDA kernel in ``nextsim_tpu_torch/csrc/welding_roach.cu``.
+"""Roach welding on the GPU: wrapper, plan, gradient and loader of the CUDA
+kernel in ``nextsim_tpu_torch/csrc/welding_roach.cu``.
 
 The JAX package computes the welding of the floe size distribution as
 XLA-fused ``jnp`` (nextsim_tpu/ops/fsd.py ``welding_roach``: a ``fori_loop``
@@ -7,9 +7,11 @@ of 256 masked substeps over every cell); it has no Pallas kernel there. The
 port's plain version, ``fsd.welding_roach_reference``, gathers the active
 cells and loops to their largest count, which reads back twice a call and
 launches ~150 kernels a substep; copied as the JAX package writes it, it
-would put ~39,000 kernels into every step. The kernel runs one thread a
-cell, each to its own count, in one launch that reads nothing back, so a
-step with welding can be captured in a CUDA graph, and a batched ensemble's
+would put ~39,000 kernels into every step. The kernel reads nothing back:
+a memset and two launches a call on the stream (pass 1 copies the inactive
+cells and lists the active ones on the device, pass 2 welds the listed
+cells packed into full warps, each to its own count), so a step with
+welding can be captured in a CUDA graph, and a batched ensemble's
 member-minor stack ``(nbins, N, ny, nx)`` is just more cells.
 
 * ``fsd.welding_roach`` sends a stack on the card here: ``welding_roach``
@@ -23,18 +25,23 @@ member-minor stack ``(nbins, N, ny, nx)`` is just more cells.
   input under ``torch.enable_grad()`` and differentiates it. The JAX
   ``fori_loop`` is differentiable, and a kernel launched through ctypes is
   invisible to autograd (ROADMAP C.3), so the step stays differentiable.
-* The bins' plan (``fsd.welding_pairs``: every pair's merge bin, width,
-  offset and valid flag, then the bin centres) is uploaded once per bins,
-  dtype and device (``_plan``), so a captured call copies nothing from the
-  host.
+* The bins' plan (``fsd.welding_pairs``) is compiled into the kernel:
+  every pair's merge bin and valid flag go to ``nvcc`` as -D strings
+  (``plan_defines``), so each plan builds its own library. The values --
+  the widths of the merge bins, the offsets of the pairs and the bin
+  centres, ``torch.as_tensor`` of them in the plane dtype -- are a host
+  table (``_plan``) copied into the launch's parameters, so a captured
+  call copies nothing from the host.
 * ``ctot`` and ``c_broken`` stay torch reductions here, so the kernel sees
-  the sums the plain version forms.
+  the sums the plain version forms; the active cells' list and its count
+  are one int32 scratch tensor.
 
 The kernel is built with ``nvcc`` for sm_90a (``--fmad=false``) on first use,
-one library per bin count (``-DWELDING_NBINS``, up to 32 bins: the build
-for more fails, naming the shared memory), into
-``nextsim_tpu_torch/build/`` (``momentum_cuda.compile_library``), and loaded
-with ctypes. ``launches`` counts the kernel's launches: one a call.
+one library per plan (up to 32 bins), into ``nextsim_tpu_torch/build/``
+(``momentum_cuda.compile_library``: the file's tag hashes the source and
+the flags, the plan's among them), and loaded with ctypes. ``launches``
+counts the kernels that the C launcher reports it launched:
+``LAUNCHES_A_CALL`` (two) a call on a stack of cells, none on an empty one.
 """
 
 from __future__ import annotations
@@ -46,8 +53,10 @@ import torch
 
 from nextsim_tpu_torch.ops import momentum_cuda
 
-#: kernel launches made by ``_launch`` (one a ``welding_roach`` call)
+#: kernel launches made by ``_launch``, as the C launcher reports them
 launches = 0
+#: kernel launches a ``welding_roach`` call on a stack of cells makes: pass 1 and pass 2
+LAUNCHES_A_CALL = 2
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "welding_roach.cu"
 #: the kernel's entry point for each plane dtype
@@ -72,25 +81,43 @@ def _scalars(dt: float, p, bins, cells: int) -> _Scalars:
                     ndt_max=float(fsd.WELDING_NDT_MAX), cells=cells, nbins=p.num_bins, pad_=0)
 
 
-#: device copies of the bins' plan, made once: (bins, merge, table) by
-#: (id(bins), nbins, dtype, device)
+#: the bins' plan of each (bins, nbins): (bins, -D flags, {dtype: host table})
 _PLANS = {}
 
 
-def _plan(bins, n: int, dtype, device):
-    """(merge bins (int32), table (dtype): the pairs' widths, offsets and
-    valid flags, then the bin centres) on ``device``, uploaded at the first
-    call for these bins."""
+def plan_defines(bins, n: int) -> tuple:
+    """The -D flags that compile the plan of ``n`` bins into the kernel:
+    the bin count, and every pair's merge bin (two digits) and valid flag
+    (0 or 1), in ``fsd.welding_pairs``' order, each list one token (``m``
+    or ``v`` and its digits: nvcc reads a comma in a -D value as the start
+    of another definition)."""
     from nextsim_tpu_torch.ops.fsd import welding_pairs
 
-    key = (id(bins), n, dtype, str(device))
+    merge, _, _, valid = welding_pairs(bins, n)
+    return (f"-DWELDING_NBINS={int(n)}", "-DWELDING_MERGE=m" + "".join(f"{a:02d}" for a in merge),
+            "-DWELDING_VALID=v" + "".join("1" if ok else "0" for ok in valid))
+
+
+def _plan(bins, n: int, dtype):
+    """(the plan's -D flags, its host table in ``dtype``): the widths of
+    merge bins 1..n (a pair's width is its merge bin's; 0 for a bin into
+    which no pair merges), every pair's offset, then the bin centres, each
+    ``torch.as_tensor`` of ``fsd.welding_pairs``' values, as the plain
+    version makes its columns. Made once for these bins and dtype."""
+    from nextsim_tpu_torch.ops.fsd import welding_pairs
+
+    key = (id(bins), n)
     hit = _PLANS.get(key)
     if hit is None or hit[0] is not bins:
-        merge, width, off, valid = welding_pairs(bins, n)
-        table = torch.as_tensor(width + off + valid + [float(v) for v in bins.scaled_centre[:n]],
-                                dtype=dtype, device=device)
-        hit = _PLANS[key] = (bins, torch.as_tensor(merge, dtype=torch.int32, device=device), table)
-    return hit[1], hit[2]
+        hit = _PLANS[key] = (bins, plan_defines(bins, n), {})
+    tables = hit[2]
+    if dtype not in tables:
+        merge, width, off, _ = welding_pairs(bins, n)
+        by_bin = [0.0] * n
+        for a, w in zip(merge, width):
+            by_bin[a - 1] = w
+        tables[dtype] = torch.as_tensor(by_bin + off + [float(v) for v in bins.scaled_centre[:n]], dtype=dtype)
+    return hit[1], tables[dtype]
 
 
 def welding_roach(conc_fsd, dt: float, p, bins, freezing):
@@ -104,9 +131,9 @@ def welding_roach(conc_fsd, dt: float, p, bins, freezing):
 
 
 def weld(conc_fsd, dt: float, p, bins, freezing):
-    """One launch of the kernel: the welded stack, a new tensor. The
-    caller's sums of the bins (``ctot``, ``c_broken``) are taken here with
-    torch, as the plain version takes them."""
+    """One call of the kernel (``_launch``): the welded stack, a new
+    tensor. The caller's sums of the bins (``ctot``, ``c_broken``) are
+    taken here with torch, as the plain version takes them."""
     n = p.num_bins
     dtype = conc_fsd.dtype
     if dtype not in _ENTRY:
@@ -121,29 +148,33 @@ def weld(conc_fsd, dt: float, p, bins, freezing):
         raise ValueError("welding_roach: the stack and the freezing mask must be contiguous")
     ctot = conc_fsd.sum(dim=0)
     c_broken = conc_fsd[:-1].sum(dim=0)
-    merge, table = _plan(bins, n, dtype, conc_fsd.device)
     out = torch.empty_like(conc_fsd)
-    _launch(conc_fsd, out, ctot, c_broken, freezing, merge, table, _scalars(dt, p, bins, ctot.numel()))
+    defines, table = _plan(bins, n, dtype)
+    work = torch.empty(ctot.numel() + 1, dtype=torch.int32, device=conc_fsd.device)
+    _launch(conc_fsd, out, ctot, c_broken, freezing, work, defines, table, _scalars(dt, p, bins, ctot.numel()))
     return out
 
 
-def _launch(conc_fsd, out, ctot, c_broken, freezing, merge, table, scalars: _Scalars) -> None:
-    """The kernel on the current stream of the stack's device; counts the
-    launch; raises on a device that is not CUDA and on a failed build or
-    launch."""
+def _launch(conc_fsd, out, ctot, c_broken, freezing, work, defines, table, scalars: _Scalars) -> None:
+    """The memset and both kernels on the current stream of the stack's
+    device (``work``: the count, then the list of active cells; ``table``:
+    the plan's values on the host); counts the kernels the launcher reports
+    it launched; raises on a device that is not CUDA and on a failed build
+    or launch."""
     global launches
     if conc_fsd.device.type != "cuda":
         raise ValueError(f"welding_roach: no kernel for device {conc_fsd.device}")
-    lib = _library(scalars.nbins)
+    lib = _library(defines)
     fn = getattr(lib, _ENTRY[conc_fsd.dtype])
+    kernels = ctypes.c_int(0)
     with torch.cuda.device(conc_fsd.device):
         stream = torch.cuda.current_stream(conc_fsd.device).cuda_stream
         err = fn(conc_fsd.data_ptr(), out.data_ptr(), ctot.data_ptr(), c_broken.data_ptr(),
-                 freezing.data_ptr(), merge.data_ptr(), table.data_ptr(), ctypes.byref(scalars),
-                 ctypes.c_void_p(stream))
+                 freezing.data_ptr(), work.data_ptr(), table.data_ptr(), ctypes.byref(scalars),
+                 ctypes.c_void_p(stream), ctypes.byref(kernels))
+    launches += kernels.value
     if err:
         raise RuntimeError(f"welding_roach: CUDA launch failed: {lib.nextsim_welding_error_string(err).decode()}")
-    launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -185,19 +216,19 @@ def welding_roach_recorded(conc_fsd, dt: float, p, bins, freezing):
 # Build and load
 # ---------------------------------------------------------------------------
 
-#: the loaded library of each bin count
+#: the loaded library of each plan, by its -D flags
 _libs = {}
 #: what nvcc printed for the last build made by this process (-Xptxas=-v:
-#: registers, shared memory and spills), "" if it was cached
+#: registers, stack frame, spills), "" if it was cached
 build_log = ""
 
 
-def build(nbins: int, flags=momentum_cuda._NVCC_FLAGS) -> Path:
-    """Compile the kernel for ``nbins`` bins into ``nextsim_tpu_torch/build/``
-    unless a library built from the same source and flags is there; returns
-    its path."""
+def build(defines, flags=momentum_cuda._NVCC_FLAGS) -> Path:
+    """Compile the kernel for the plan ``defines`` (``plan_defines``) into
+    ``nextsim_tpu_torch/build/`` unless a library built from the same
+    source and flags is there; returns its path."""
     global build_log
-    out, log = momentum_cuda.compile_library(_SRC, "libwelding_roach", (*flags, f"-DWELDING_NBINS={int(nbins)}"))
+    out, log = momentum_cuda.compile_library(_SRC, "libwelding_roach", (*flags, *defines))
     if log is not None:
         build_log = log
     return out
@@ -208,7 +239,7 @@ def load(path: Path):
     lib = ctypes.CDLL(str(path))
     for name in _ENTRY.values():
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(_Scalars), ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(_Scalars), ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
     lib.nextsim_welding_nbins.argtypes = []
     lib.nextsim_welding_nbins.restype = ctypes.c_int
@@ -217,12 +248,8 @@ def load(path: Path):
     return lib
 
 
-def _library(nbins: int):
-    lib = _libs.get(nbins)
+def _library(defines):
+    lib = _libs.get(defines)
     if lib is None:
-        lib = load(build(nbins))
-        if lib.nextsim_welding_nbins() != nbins:
-            raise RuntimeError(f"welding_roach: the library built for {nbins} bins takes "
-                               f"{lib.nextsim_welding_nbins()}")
-        _libs[nbins] = lib
+        lib = _libs[defines] = load(build(defines))
     return lib

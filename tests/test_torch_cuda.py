@@ -51,16 +51,23 @@ a bad member stride is refused by the kernel itself. The batched ensemble
 step captured as a CUDA graph equals the eager batched step and the member
 loop ``step_members`` bitwise, at 464^2 thermo on.
 
-Roach welding (csrc/welding_roach.cu, ``welding_cuda``): the kernel equals
-the plain version ``fsd.welding_roach_reference`` bitwise in float32,
-float64 and bfloat16, with unscaled areas (every active cell to the cap of
-256 substeps) and scaled ones (counts of their own), in one launch; one
-launch on a member-minor stack equals a launch a member; a kernel built for
-another bin count refuses the call; a chunk of the FSD configuration
-captured as a CUDA graph equals the eager loop bitwise and replays the
-welding launch; the gradient through ``WeldingRoach`` equals plain autograd
-and is not the identity; the batched ensemble step with welding equals
-``step_members`` bitwise, one welding launch for all members.
+Roach welding (csrc/welding_roach.cu, ``welding_cuda``: a memset and two
+launches a call, the active cells listed on the device and welded packed
+into full warps, the bins' plan compiled in): the kernel equals the plain
+version ``fsd.welding_roach_reference`` bitwise (NaN in the same places) in
+float32, float64 and bfloat16, with unscaled areas (every active cell to
+the cap of 256 substeps) and scaled ones (counts of their own, mixed within
+a warp), with no active cell, every cell active, a cell count that is no
+multiple of a block, under other plans in one process (other bin edges,
+another count, undefined merge bins) and at 32 bins; one call on a
+member-minor stack equals a call a member; an empty stack launches and
+counts nothing; a kernel built for another bin count refuses the call; one call captured in a CUDA graph and replayed
+twice gives the same bits twice (the count of active cells is zeroed by
+each replay); a chunk of the FSD configuration captured as a CUDA graph
+equals the eager loop bitwise and replays the welding launches; the
+gradient through ``WeldingRoach`` equals plain autograd and is not the
+identity; the batched ensemble step with welding equals ``step_members``
+bitwise, one welding call for all members.
 
 Reverse mode on the card (``momentum_cuda.SubstepLoop``): the gradient
 through ``substep_loop`` against straight autograd through the plain loop
@@ -852,12 +859,124 @@ def test_welding_kernel_equals_plain(cuda, dtype_name, scaled):
     cf, freezing = _weld_stack(1, dtype_name)
     launches = welding_cuda.launches
     out = fsd.welding_roach(cf, WELD_DT, p, bins, freezing)
-    assert welding_cuda.launches == launches + 1
+    assert welding_cuda.launches == launches + welding_cuda.LAUNCHES_A_CALL
     ref = fsd.welding_roach_reference(cf, WELD_DT, p, bins, freezing)
     active = freezing & (cf[:-1].sum(0) > 0.01) & (cf.sum(0) > 0.1)
     assert int(active.sum()) > 100 and not torch.equal(ref, cf)
     assert out.dtype == cf.dtype and _same(out, ref)
     assert float(torch.isfinite(ref).float().mean()) > 0.99
+
+
+def _weld_case(case, dtype_name, p, bins, shape=(48, 48), seed=11):
+    """(conc_fsd, freezing) on the card for one of the kernel's cases."""
+    import numpy as np
+
+    if case == "scattered, mixed counts":  # a fifth of the cells, at random
+        cf, freezing = _weld_stack(seed, dtype_name, shape=shape, n=p.num_bins)
+        rng = np.random.default_rng(seed + 1)
+        return cf, freezing & torch.as_tensor(rng.uniform(0, 1, shape) < 0.2, device="cuda")
+    if case == "no active cell":
+        cf, freezing = _weld_stack(seed, dtype_name, shape=shape, n=p.num_bins)
+        return cf, torch.zeros_like(freezing)
+    # every cell active: broken floes (the last bin under half) and ctot > 0.1
+    rng = np.random.default_rng(seed)
+    ctot = rng.uniform(0.2, 1.0, shape)
+    w = rng.uniform(0.1, 1.0, (p.num_bins,) + shape)
+    w[-1] *= 0.2
+    dtype = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}[dtype_name]
+    cf = torch.tensor(w / w.sum(0) * ctot, dtype=dtype, device="cuda")
+    return cf, torch.ones(shape, dtype=torch.bool, device="cuda")
+
+
+def _weld_equals_plain(cf, freezing, p, bins):
+    """One kernel call against the plain version: bitwise, NaN in the same
+    places; returns (the result, the number of active cells)."""
+    launches = welding_cuda.launches
+    out = fsd.welding_roach(cf, WELD_DT, p, bins, freezing)
+    assert welding_cuda.launches == launches + welding_cuda.LAUNCHES_A_CALL
+    ref = fsd.welding_roach_reference(cf, WELD_DT, p, bins, freezing)
+    assert out.dtype == cf.dtype and _same(out, ref)
+    return out, int((freezing & (cf[:-1].sum(0) > 0.01) & (cf.sum(0) > 0.1)).sum())
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64", "bfloat16"])
+@pytest.mark.parametrize("case, shape", [("no active cell", (48, 48)), ("every cell active", (48, 48)),
+                                         ("scattered, mixed counts", (48, 48)),
+                                         ("every cell active", (37, 29))])  # 1,073 cells: no multiple of a block
+def test_welding_kernel_cases(cuda, case, shape, dtype_name):
+    p, bins = _weld_params(True)
+    cf, freezing = _weld_case(case, dtype_name, p, bins, shape)
+    out, active = _weld_equals_plain(cf, freezing, p, bins)
+    cells = shape[0] * shape[1]
+    assert cells % 64 or shape == (48, 48)
+    if case == "no active cell":
+        assert active == 0 and torch.equal(out, cf)
+    elif case == "every cell active":
+        assert active == cells and not torch.equal(out, cf)
+    else:
+        on = freezing & (cf[:-1].sum(0) > 0.01) & (cf.sum(0) > 0.1)
+        ndt = torch.ceil(WELD_DT * p.welding_kappa * cf.sum(0).double() * float(bins.scaled_up[-1]) + 0.5)
+        assert 50 < active < cells // 3 and len(torch.unique(ndt[on])) > 5  # counts mixed within warps
+        assert not torch.equal(out, cf)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64", "bfloat16"])
+def test_welding_kernel_under_other_plans_in_one_process(cuda, dtype_name):
+    """Other bin edges at the same count, another count and undefined merge
+    bins: each plan builds its own library, every call equals the plain
+    version."""
+    import dataclasses
+
+    p, bins = _weld_params(True)
+    alpha = bins.alpha_merge.copy()
+    alpha[3, 1] = alpha[5, 0] = -999
+    plans = {"6 bins of 40 m": (p, bins), "undefined merge bins": (p, dataclasses.replace(bins, alpha_merge=alpha))}
+    for name, kw in (("6 bins of 10 m", dict(bin_cst_width=10.0)), ("7 bins", dict(num_bins=7))):
+        q = fsd.FSDParams(**dict(dict(num_bins=WELD_BINS, bin_cst_width=40.0, welding_type="roach",
+                                      welding_use_scaled_area=True), **kw))
+        plans[name] = (q, fsd.make_bins(q))
+    defines = {welding_cuda.plan_defines(b, q.num_bins) for q, b in plans.values()}
+    assert len(defines) == len(plans)
+    for name, (q, b) in plans.items():
+        cf, freezing = _weld_stack(12, dtype_name, shape=(24, 24), n=q.num_bins)
+        _, active = _weld_equals_plain(cf, freezing, q, b)
+        assert active > 50, name
+    assert defines <= set(welding_cuda._libs)
+
+
+@pytest.mark.parametrize("dtype_name", ["float64", "float32", "bfloat16"])
+def test_welding_kernel_at_32_bins(cuda, dtype_name):
+    """The most bins the kernel takes, unscaled areas (every active cell to
+    the cap of 256 substeps): float64 holds ~130 doubles a cell."""
+    p, bins = _weld_params(False, n=32)
+    cf, freezing = _weld_stack(13, dtype_name, shape=(24, 24), n=32)
+    out, active = _weld_equals_plain(cf, freezing, p, bins)
+    assert active > 50 and not torch.equal(out, cf)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64", "bfloat16"])
+def test_captured_welding_call_replays_twice(cuda, dtype_name):
+    """One call captured in a CUDA graph (the memset and both kernels):
+    two replays give the plain version's bits, the second the first's (a
+    count of active cells that were not zeroed would grow)."""
+    p, bins = _weld_params(True)
+    cf, freezing = _weld_stack(14, dtype_name)
+    ref = fsd.welding_roach_reference(cf, WELD_DT, p, bins, freezing)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the build and a warm call outside the capture
+        fsd.welding_roach(cf, WELD_DT, p, bins, freezing)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    launches = welding_cuda.launches
+    with torch.cuda.graph(graph):
+        out = fsd.welding_roach(cf, WELD_DT, p, bins, freezing)
+    assert welding_cuda.launches == launches + welding_cuda.LAUNCHES_A_CALL
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _same(first, ref) and _same(out, first) and not torch.equal(first, cf)
 
 
 @pytest.mark.parametrize("dtype_name", ["float32", "float64", "bfloat16"])
@@ -868,18 +987,28 @@ def test_batched_welding_launch_equals_single_launches(cuda, dtype_name):
     freezing = torch.stack([f for _, f in members])
     launches = welding_cuda.launches
     out = fsd.welding_roach(cf, WELD_DT, p, bins, freezing)
-    assert welding_cuda.launches == launches + 1
+    assert welding_cuda.launches == launches + welding_cuda.LAUNCHES_A_CALL
     for m, (c, f) in enumerate(members):
         assert torch.equal(out[:, m], fsd.welding_roach(c, WELD_DT, p, bins, f)), m
     assert torch.equal(out, fsd.welding_roach_reference(cf, WELD_DT, p, bins, freezing))
 
 
+def test_welding_empty_stack_launches_nothing(cuda):
+    """A stack of no cells: the C launcher returns before the memset and
+    both kernels and reports none, so nothing is counted."""
+    p, bins = _weld_params()
+    cf = torch.zeros((WELD_BINS, 0, 7), device="cuda")
+    launches = welding_cuda.launches
+    out = fsd.welding_roach(cf, WELD_DT, p, bins, torch.zeros((0, 7), dtype=torch.bool, device="cuda"))
+    assert tuple(out.shape) == (WELD_BINS, 0, 7) and welding_cuda.launches == launches
+
+
 def test_welding_kernel_refuses_another_bin_count(cuda, monkeypatch):
     """A library is built for one bin count: called with another, the
     kernel itself refuses (cudaErrorInvalidValue), and nothing is counted."""
-    six = welding_cuda._library(WELD_BINS)
+    six = welding_cuda._library(welding_cuda.plan_defines(_weld_params()[1], WELD_BINS))
     assert six.nextsim_welding_nbins() == WELD_BINS
-    monkeypatch.setattr(welding_cuda, "_library", lambda n: six)
+    monkeypatch.setattr(welding_cuda, "_library", lambda defines: six)
     p, bins = _weld_params(n=WELD_BINS + 1)
     cf, freezing = _weld_stack(5, "float32", n=WELD_BINS + 1)
     launches = welding_cuda.launches
@@ -904,7 +1033,8 @@ def test_welding_gradient_on_the_card(cuda):
 
     launches = welding_cuda.launches
     out, got = grad_of(lambda x: fsd.welding_roach(x, WELD_DT, p, bins, freezing))
-    assert welding_cuda.launches == launches + 1 and type(out.grad_fn).__name__ == "WeldingRoachBackward"
+    assert welding_cuda.launches == launches + welding_cuda.LAUNCHES_A_CALL
+    assert type(out.grad_fn).__name__ == "WeldingRoachBackward"
     ref, plain = grad_of(lambda x: fsd.welding_roach_reference(x, WELD_DT, p, bins, freezing))
     assert torch.equal(out.detach(), ref.detach()) and torch.equal(got, plain)
     assert float((got - w).abs().max()) > 1e-6
@@ -914,7 +1044,7 @@ def test_welding_gradient_on_the_card(cuda):
 def test_captured_welding_chunk_equals_the_eager_loop(cuda, dtype_name):
     """The FSD configuration (no eager reason now): two 2-step chunks, the
     second a replay, equal the eager loop bitwise; the graph holds one
-    welding launch a step, and welding acts."""
+    welding call a step, and welding acts."""
     over = dict(WELD_SIM, **{"tpu.dtype": dtype_name})
     a = Simulator(Config(overrides=over), device="cuda")
     b = Simulator(Config(overrides=over), device="cuda")
@@ -925,17 +1055,17 @@ def test_captured_welding_chunk_equals_the_eager_loop(cuda, dtype_name):
     for chunk in range(2):
         launches = welding_cuda.launches
         a.step_chunk(2)
-        assert welding_cuda.launches == launches + 2, chunk
+        assert welding_cuda.launches == launches + 2 * welding_cuda.LAUNCHES_A_CALL, chunk
         b.step_chunk_eager(2)
         _equal_states(a.state, b.state, f"chunk {chunk}")
-    assert len(a._program.graphs) == 1 and a._program.stats["welding_launches"] == 2
+    assert len(a._program.graphs) == 1 and a._program.stats["welding_launches"] == 2 * welding_cuda.LAUNCHES_A_CALL
     assert not torch.equal(a.state.conc_fsd, before)
 
 
 def test_batched_step_with_welding_equals_the_member_loop(cuda):
     """3 members (the control and 2 perturbed) of the FSD configuration, 3
     steps: the batched step (one graph replay) equals ``step_members``
-    bitwise, every member; a batched step launches the welding kernel once
+    bitwise, every member; a batched step calls the welding kernel once
     for all members, the member loop once a member."""
     from nextsim_tpu_torch.ensemble.batched import BatchedEnsemble
 
@@ -944,10 +1074,10 @@ def test_batched_step_with_welding_equals_the_member_loop(cuda):
     a.states = _seed_broken(a.states)
     b.states = _seed_broken(b.states)
     for step in range(3):
-        for run, want in ((a.step, 1), (b.step_members, 3)):
+        for run, calls in ((a.step, 1), (b.step_members, 3)):
             launches = welding_cuda.launches
             run()
-            assert welding_cuda.launches == launches + want, step
+            assert welding_cuda.launches == launches + calls * welding_cuda.LAUNCHES_A_CALL, step
         for k in range(3):
             _equal_states(a.member_state(k), b.member_state(k), f"step {step}, member {k}")
-    assert len(a._program.graphs) == 1 and a._program.stats["welding_launches"] == 1
+    assert len(a._program.graphs) == 1 and a._program.stats["welding_launches"] == welding_cuda.LAUNCHES_A_CALL

@@ -727,6 +727,7 @@ SLICE_MODULES = [
     "nextsim_tpu_torch.forcing.bathymetry", "nextsim_tpu_torch.model.init_ice_datasets",
     "nextsim_tpu_torch.ops.nesting", "nextsim_tpu_torch.model.nesting_source",
     "nextsim_tpu_torch.tools.synthetic_etopo", "nextsim_tpu_torch.tools.tune_substep",
+    "nextsim_tpu_torch.tools.tune_welding",
     "nextsim_tpu_torch.ops.fsd", "nextsim_tpu_torch.wim.rtparam", "nextsim_tpu_torch.wim.wim",
     "nextsim_tpu_torch.wim.regrid", "nextsim_tpu_torch.wim.__main__", "nextsim_tpu_torch.wim",
     "nextsim_tpu_torch.coupling.exchange", "nextsim_tpu_torch.coupling",
