@@ -114,10 +114,12 @@ printing a line; any failure raises and ends the run with a non-zero exit:
 19. the ensemble at full width: ``BatchedEnsemble`` on phase 11's
    configuration and files, 4 members (the control and 3 perturbed) for 12
    steps, each step twice from the same state, in turns: the batched step
-   (one replay of a captured CUDA graph; the substep kernel launched once
-   for all members, the plan's launches a step) and the member loop
-   ``step_members`` (eager, 4 x the plan's launches a step), every member
-   equal bitwise after every step; every member finite with zero
+   (one replay of a captured CUDA graph; the perturbed members' draws, AR(1)
+   updates and perturbations inside it, their generators registered, and
+   restored with ``set_state`` between the turns; the substep kernel
+   launched once for all members, the plan's launches a step) and the
+   member loop ``step_members`` (eager draws, 4 x the plan's launches a
+   step), every member equal bitwise after every step; every member finite with zero
    violations (the batched step's (4, checks) flags), spread in conc, sst
    and vt_u, member 0 on the provider's forcing, statistics moorings
    records, and a checkpoint at step 6 read back into the same ensemble
@@ -125,7 +127,9 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    (median, min, max) beside phase 11's, the graph's nodes, capture and
    instantiation seconds and pool, and the member loop's step under
    torch.profiler (launches, device busy, idle share; the batched step's
-   replay is profiled at the end of phase 29); then the welding ensemble:
+   replay is profiled at the end of phase 29), one batched step's CUDA
+   runtime calls under torch.profiler (one graph launch; outside it the
+   forcing's copies); then the welding ensemble:
    4 members of phase 19's configuration with phase 14's FSD (20 bins,
    Roach welding on scaled areas, melt_type 3) on phase 14's last state
    with broken floes spread from numpy, 3 steps, the batched replay and
@@ -143,7 +147,15 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    events, in turns, and the plain loop on the batch, with its bound (4 x
    the single one);
 20. at 464^2 thermo on, 3 members for 3 steps: batched member 0 equals a
-   Simulator and member 2 a Simulator with ensemble_member=2, bitwise;
+   Simulator and member 2 a Simulator with ensemble_member=2 (one-step
+   graph replays, its draws inside them), bitwise; then the perturbed
+   member: ``Simulator(member=2)`` at 464^2 thermo on (no eager reason),
+   30-step chunks from one state and generator state, ``step_chunk``
+   (one replay of the 30-step graph: the noise drawn, filtered, advanced
+   and applied inside it) and ``step_chunk_eager`` in turns, three times
+   each, every result bitwise equal (state, AR(1) carry, generator state,
+   last perturbed forcing); ms/step of each (median, min, max), the
+   graph's nodes, capture and instantiation seconds;
 21. ``python -m nextsim_tpu_torch.ensemble.run_ensemble --device cuda`` with
    a control and 2 members on configs/toy.cfg for 0.05 days, as a
    subprocess: mem_0..mem_2 finite, the members different;
@@ -212,9 +224,10 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    ``step_chunk_eager`` and ``step_chunk`` (one graph replay) in turns,
    every result bitwise equal; ms/step of each, the device-busy share of
    each under torch.profiler, the graph's nodes, capture and instantiation
-   seconds and pool; phase 19's batched ensemble step (a graph replay) under
-   torch.profiler, the last profile of the run (device busy and idle
-   share); then ``python -m nextsim_tpu_torch.bench`` as a subprocess and
+   seconds and pool; phase 20's perturbed member's one-step replays under
+   torch.profiler (device busy a step beside the unperturbed one's); phase
+   19's batched ensemble step (a graph replay) under torch.profiler, the
+   last profile of the run (device busy and idle share); then ``python -m nextsim_tpu_torch.bench`` as a subprocess and
    its line.
 
 The line before the last is the JSON record of the two kernels. The
@@ -222,11 +235,13 @@ substep kernel: its launches summed over the paths of phases 5 (the eager
 first call and the replay, ``main_graph``), 8, 11, 14 (and its captured
 chunk, ``wave_graph``), 17, 19 (the batched steps ``ensemble_batched``, the
 member loop ``ensemble``, the welding ensemble's batched steps
-``ensemble_welding``), 22, 23, 24, 25, 26, 27 and 28 (the mesh paths summed
+``ensemble_welding``), 20 (the perturbed member's replays,
+``perturbed``), 22, 23, 24, 25, 26, 27 and 28 (the mesh paths summed
 over their ranks), each counted from zero, none of them zero;
 ``bf16_bitwise`` by rheology and the bfloat16 loop's times; phase 29's
 numbers under ``captured``; phase 19's under ``ensemble_608x4``, phase
-19b's under ``batched_608x4``, phase 14's captured chunk under
+19b's under ``batched_608x4``, phase 20's perturbed member under
+``perturbed_464``, phase 14's captured chunk under
 ``wave_captured``. The welding kernel: its launches on the paths that weld
 (``WELDING_PATHS``: phases 14, its captured chunk, 17, 19's welding
 ensemble and 25), none of them zero, and the paths that do not weld named;
@@ -1157,6 +1172,32 @@ def write_coupler_files(grid_file: Path, cpl_dir: Path):
     return plat.shape
 
 
+HOST_CALLS = LAUNCH_EVENTS + ("cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def host_calls(fn):
+    """The CUDA runtime calls (kernel launches, graph launches, copies,
+    memsets) of one synchronized call of ``fn`` under torch.profiler, by
+    name, the calls it did not make left out; and its kernel launches by
+    the top-level host operator that made them."""
+    import torch
+
+    sync()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    counts = {e.key: e.count for e in prof.key_averages() if e.key in HOST_CALLS}
+    launched_by = {}
+    for e in prof.events():
+        if e.name in LAUNCH_EVENTS:
+            top = e
+            while top.cpu_parent is not None:
+                top = top.cpu_parent
+            launched_by[top.name] = launched_by.get(top.name, 0) + 1
+    return {name: counts[name] for name in HOST_CALLS if counts.get(name)}, launched_by
+
+
 def profiled(fn, host_events=True):
     """(host wall s, device busy ms, launches) of one synchronized call of
     ``fn`` under torch.profiler; the wall time includes the profiler's cost.
@@ -2061,14 +2102,22 @@ def ensemble_run(tmp: Path, smi: str, dataset_ms: float):
         raise AssertionError(f"ensemble: a perturbed member has the control's air temperature {dtair}")
 
     # the member loop under torch.profiler (eager; the batched step's graph
-    # is profiled in phase 29, after every profile of eager code)
+    # is profiled in phase 29, after every profile of eager code), and the
+    # runtime calls of one batched step, its draws in the graph: outside the
+    # replay the forcing's copies only
     wall, busy, n_launch = profiled(loop_step)
+    snap = _ensemble_snapshot(ens)
+    calls, launched_by = host_calls(ens.step)
+    _ensemble_restore(ens, snap)
+    if calls.get("cudaGraphLaunch") != 1:
+        raise AssertionError(f"ensemble: one batched step made the runtime calls {calls}, not one graph launch")
     stat = {mode: (float(np.median(v[1:])), min(v[1:]), max(v[1:])) for mode, v in ms.items()}
     rec = {"ms_batched": stat["batched"], "ms_loop": stat["loop"], "first_ms": {m: v[0] for m, v in ms.items()},
            "launches_a_step": {"batched": per_batched, "loop": ENSEMBLE_MEMBERS * per_loop},
            "loop_busy_ms": busy, "loop_busy_share": busy / stat["loop"][0], "nodes": graph["nodes"],
            "capture_s": graph["capture_s"], "instantiate_s": graph["instantiate_s"],
-           "pool_bytes": graph["pool_bytes"]}
+           "pool_bytes": graph["pool_bytes"], "generators": graph["generators"], "host_calls": calls,
+           "launched_by": launched_by}
     fmt = lambda v: f"{v[0]:.2f} ms/step (min {v[1]:.2f}, max {v[2]:.2f})"  # noqa: E731
     phase("ensemble", f"BatchedEnsemble on arctic_10km.cfg {ny}x{nx}, ERA5 + TOPAZ4 + ETOPO, thermo on, "
           f"{ENSEMBLE_MEMBERS} members x {ENSEMBLE_STEPS} steps, each step twice from one state in turns: "
@@ -2079,7 +2128,10 @@ def ensemble_run(tmp: Path, smi: str, dataset_ms: float):
           f"substep-kernel launches {counts['batched']} batched ({per_batched} a step for {ENSEMBLE_MEMBERS} "
           f"members), {counts['loop']} in the loop ({per_loop} a member and step); the graph: {graph['nodes']} "
           f"nodes, capture {graph['capture_s']:.2f} s, instantiation {graph['instantiate_s']:.2f} s, pool "
-          f"{graph['pool_bytes'] / 2**20:.1f} MiB; zero violations (flags {tuple(ens.violations.shape)}); spread "
+          f"{graph['pool_bytes'] / 2**20:.1f} MiB, {graph['generators']} member generators registered (the draws "
+          f"in the graph); a batched step's runtime calls (torch.profiler) {json.dumps(calls)}, kernel launches "
+          f"outside the replay {sum(calls.get(n, 0) for n in LAUNCH_EVENTS)}, by host operator "
+          f"{json.dumps(launched_by)}; zero violations (flags {tuple(ens.violations.shape)}); spread "
           f"{json.dumps({k: round(v, 6) for k, v in spread.items()})}; perturbed members' max |dtair| "
           f"{', '.join(f'{d:.3f}' for d in dtair)} K; {n_rec} statistics records; restart at step {half} resumed "
           f"bitwise through the batched step; the member loop's step under torch.profiler: {n_launch} launches, "
@@ -2388,10 +2440,15 @@ def batched_kernel_phase(ens, smi: str) -> dict:
     return rec
 
 
-def ensemble_members_vs_simulators(smi: str) -> None:
+PERTURBED_K = 30  # phase 20's chunk: bench.py's tpu.steps_per_call
+PERTURBED_TURNS = 3
+
+
+def ensemble_members_vs_simulators(smi: str):
     """Phase 20: at 464^2 thermo on, batched member 0 equals a Simulator
-    and member 2 a Simulator with ensemble_member=2, bitwise, after 3
-    steps."""
+    and member 2 a Simulator with ensemble_member=2 (its steps graph
+    replays, its draws inside them), bitwise, after 3 steps; then
+    ``perturbed_member``. Returns its record and Simulator."""
     import dataclasses
 
     import torch
@@ -2407,6 +2464,8 @@ def ensemble_members_vs_simulators(smi: str) -> None:
         sim = Simulator(cfg(m), device="cuda")
         for _ in range(3):
             sim.step()
+        if sim.eager_reason is not None or len(sim._program.graphs) != 1:
+            raise AssertionError(f"Simulator(member={m}) did not replay its step graph: {sim.eager_reason}")
         member = ens.member_state(m)
         differ = {f.name: float((getattr(sim.state, f.name) - getattr(member, f.name)).abs().max())
                   for f in dataclasses.fields(sim.state) if getattr(sim.state, f.name) is not None
@@ -2417,8 +2476,113 @@ def ensemble_members_vs_simulators(smi: str) -> None:
     d12 = float((ens.member_state(1).sst - ens.member_state(2).sst).abs().max())
     ny, nx = ens.sim.grid.shape
     phase("ensemble", f"{ny}x{nx} thermo on, 3 members x 3 steps: members {report} equal Simulator(member=m) bitwise "
-          f"in every field; "
+          f"in every field, each Simulator's steps replays of its one-step graph; "
           f"members 1 and 2 differ in sst by {d12:.3e} C; {smi}")
+    del ens
+    return perturbed_member(cfg(2), smi)
+
+
+def perturbed_member(cfg, smi: str) -> dict:
+    """Phase 20's perturbed member: ``Simulator(member=2)`` at 464^2 thermo
+    on, one ``step_chunk(30)`` (the eager warm-up, which draws, and the
+    capture), then from that state and generator state, in turns,
+    ``PERTURBED_TURNS`` times each: ``step_chunk(30)`` (one replay of the
+    30-step graph, the noise drawn, filtered, advanced and applied inside
+    it) and ``step_chunk_eager(30)``, every result bitwise equal (state,
+    AR(1) carry, generator state, last perturbed forcing); ms/step of each
+    (median, min, max; host wall, synchronized), the graph's nodes, capture
+    and instantiation seconds, and the substep kernel's launches of the
+    replays, counted from zero. Returns (the record, the Simulator)."""
+    import torch
+
+    from nextsim_tpu_torch import Simulator
+    from nextsim_tpu_torch.ops import momentum_cuda
+
+    sim = Simulator(cfg, device="cuda")
+    if sim.eager_reason is not None:
+        raise AssertionError(f"perturbed member: eager_reason {sim.eager_reason!r}")
+    gen = sim._ens_pert.generator
+    k = PERTURBED_K
+    t0 = time.perf_counter()
+    sim.step_chunk(k)
+    sync()
+    first_s = time.perf_counter() - t0
+    stats = dict(sim._program.stats)
+    state0, ran0, gen0, pcpt0 = sim.state, sim._pert_state.clone(), gen.get_state(), sim.pcpt
+
+    def run(mode):
+        sim.state, sim._pert_state, sim.pcpt, sim._pending_viol = state0, ran0.clone(), pcpt0, None
+        gen.set_state(gen0)
+        sync()
+        t = time.perf_counter()
+        (sim.step_chunk if mode == "captured" else sim.step_chunk_eager)(k)
+        sync()
+        return 1e3 * (time.perf_counter() - t) / k, (sim.state, sim._pert_state, gen.get_state(), sim.last_forcing)
+
+    ms = {"captured": [], "eager": []}
+    outs = []
+    launches = {"captured": 0, "eager": 0}
+    for i in range(PERTURBED_TURNS):
+        for mode in (("captured", "eager") if i % 2 == 0 else ("eager", "captured")):
+            momentum_cuda.launches = 0
+            t, out = run(mode)
+            launches[mode] += momentum_cuda.launches
+            ms[mode].append(t)
+            outs.append((mode, out))
+    ref = outs[0][1]
+    for n, (mode, (state, ran, g, lf)) in enumerate(outs):
+        differ = [f for f in ref[0].__dataclass_fields__ if getattr(ref[0], f) is not None
+                  and not torch.equal(getattr(ref[0], f), getattr(state, f))]
+        if not torch.equal(ran, ref[1]):
+            differ.append("the AR(1) carry")
+        if not torch.equal(g, ref[2]):
+            differ.append("the generator state")
+        differ += [name for name in ("tair", "mslp", "precip", "dair", "wind_u", "wind_v")
+                   if getattr(lf, name) is not None and not torch.equal(getattr(lf, name), getattr(ref[3], name))]
+        if differ:
+            raise AssertionError(f"perturbed member: run {n} ({mode}) differs from run 0 in {differ}")
+    if torch.equal(ref[2], gen0) or torch.equal(ref[3].tair, sim._ens_pert.provider(
+            sim.current_time, sim.time_init).tair):
+        raise AssertionError("perturbed member: the chunk drew no noise")
+    per_loop = momentum_cuda.launches_for(sim.dyn.substeps, *sim.grid.shape)
+    if launches["captured"] != PERTURBED_TURNS * k * per_loop or stats["kernel_launches"] != k * per_loop:
+        raise AssertionError(f"perturbed member: {launches} kernel launches, graph {stats['kernel_launches']}, "
+                             f"expected {k * per_loop} a chunk")
+    if len(sim._program.graphs) != 1 or stats["generators"] != 1:
+        raise AssertionError(f"perturbed member: {len(sim._program.graphs)} graphs, {stats}")
+    stat = {mode: (float(np.median(v)), min(v), max(v)) for mode, v in ms.items()}
+    fmt = lambda v: f"{v[0]:.2f} ms/step (min {v[1]:.2f}, max {v[2]:.2f})"  # noqa: E731
+    ny, nx = sim.grid.shape
+    phase("perturbed", f"Simulator(member=2) {ny}x{nx} thermo on, eager_reason None, {k}-step chunks from one state "
+          f"and generator state, {PERTURBED_TURNS} turns each (captured first in odd turns): captured (one replay, "
+          f"the noise drawn, filtered, advanced and applied in the graph) {fmt(stat['captured'])}, eager "
+          f"{fmt(stat['eager'])}; all {len(outs)} runs bitwise equal (state, AR(1) carry, generator state, last "
+          f"perturbed forcing); first call (eager warm-up + capture) {first_s:.2f} s; the graph: {stats['nodes']} "
+          f"nodes, capture {stats['capture_s']:.2f} s, instantiation {stats['instantiate_s']:.2f} s, pool "
+          f"{stats['pool_bytes'] / 2**20:.1f} MiB, {stats['kernel_launches']} substep-kernel launches a replay, "
+          f"{stats['generators']} generator registered; {smi}")
+    return {"ms_captured": stat["captured"], "ms_eager": stat["eager"], "first_call_s": first_s,
+            "nodes": stats["nodes"], "capture_s": stats["capture_s"], "instantiate_s": stats["instantiate_s"],
+            "pool_bytes": stats["pool_bytes"], "launches": launches}, sim
+
+
+def perturbed_profile(sim, unperturbed: dict, smi: str) -> dict:
+    """Phase 29: phase 20's perturbed member, ``PROFILED_STEPS`` replays of
+    its one-step graph (captured first, outside the profile) under
+    torch.profiler, the card's own entries: device busy a step beside the
+    unperturbed 464^2 thermo-on one-step replays' of phase 29."""
+    sim.step()
+
+    def steps():
+        for _ in range(PROFILED_STEPS):
+            sim.step()
+
+    busy = profiled(steps, host_events=False)[1] / PROFILED_STEPS
+    base = unperturbed["busy_ms"]["captured"]
+    phase("captured", f"phase 20's perturbed member (464^2 thermo on, member 2), {PROFILED_STEPS} replays of its "
+          f"one-step graph under torch.profiler: device busy {busy:.2f} ms a step, against {base:.2f} for the "
+          f"unperturbed member's one-step replays above: the noise {busy - base:+.2f} ms a step; {smi}")
+    return {"busy_ms": busy, "unperturbed_busy_ms": base}
 
 
 def ensemble_driver(tmp: Path, smi: str) -> None:
@@ -3896,7 +4060,8 @@ def main() -> int:
             weld_ens = welding_ensemble_phase(tmp, smi, wave_state, ens.sim.forcing_provider)
             del wave_state
             path_launches["ensemble_welding"], weld_launches["ensemble_welding"] = weld_ens["launches"]["batched"]
-        ensemble_members_vs_simulators(smi)
+        perturbed_rec, pert_sim = ensemble_members_vs_simulators(smi)
+        path_launches["perturbed"] = perturbed_rec["launches"]["captured"]
         ensemble_driver(tmp, smi)
         path_launches["validation"] = validation_run(tmp, smi, ens)
 
@@ -3927,6 +4092,8 @@ def main() -> int:
             del dataset_sim
             for label, over in (("464^2 thermo off", BENCH), ("464^2 thermo on", BENCH_THERMO)):
                 captured[label] = captured_vs_eager(label, make_sim(over), smi)
+            perturbed_rec.update(perturbed_profile(pert_sim, captured["464^2 thermo on"], smi))
+            del pert_sim
             ens_rec.update(ensemble_profile(ens, ens_rec, smi))
         del ens
     bench = bench_subprocess(smi)
@@ -3960,6 +4127,7 @@ def main() -> int:
                                                       "replay_launches")}
                      for label, r in captured.items()},
         "ensemble_608x4": ens_rec,
+        "perturbed_464": perturbed_rec,
         "batched_608x4": batched_rec,
         "wave_captured": {key: wave_rec[key] for key in ("ms_eager", "ms_captured", "nodes", "capture_s",
                                                           "instantiate_s", "pool_bytes", "replay_launches")},
@@ -3972,8 +4140,8 @@ def main() -> int:
         "launches": sum(weld_launches.values()),
         "launches_by_path": weld_launches,
         "paths": WELDING_PATHS,
-        "not_on_paths": "main, main_graph, thermo, datasets, ensemble, ensemble_batched, validation, gradient, "
-                        "mesh, mesh_ensemble, mesh_gradient and bf16 configure no floe-size distribution, so "
+        "not_on_paths": "main, main_graph, thermo, datasets, ensemble, ensemble_batched, perturbed, validation, "
+                        "gradient, mesh, mesh_ensemble, mesh_gradient and bf16 configure no floe-size distribution, so "
                         "they do not weld",
         "max_abs_err": max(r["max_abs_err"] for r in weld_rec["by_case"].values()),
         "ms": weld_rec["ms"],

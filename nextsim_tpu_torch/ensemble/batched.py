@@ -18,8 +18,10 @@ and broadcast; the perturbed ones are stacked (``perturbation.
 stack_forcings``). On the card the substep kernel runs every member in the
 same launches (its grid holds N x the tiles), and the whole batched step is
 one replay of a captured CUDA graph (``model/captured.py``), its inputs the
-stack, the stacked forcing and the time flags. On the CPU the same body
-runs eagerly. Member m equals the member stepped alone bitwise.
+stack, the provider's forcing, the time flags and the members' AR(1)
+carry: the body draws every perturbed member's noise (below), stacks the
+forcings and steps. On the CPU the same body runs eagerly. Member m equals
+the member stepped alone bitwise.
 
 ``step`` runs the batched step for every configuration, as the JAX
 package's ``_vstep`` does: FSD Roach welding (one call of its kernel for
@@ -35,8 +37,12 @@ Member 0 is the unperturbed control; members 1..N-1 carry independent AR(1)
 spectral forcing perturbations (ensemble/perturbation.py). Member m's stream
 is the one a ``Simulator`` with ``statevector.ensemble_member=m`` and the
 same seed draws, so batched member m equals that Simulator's run. The
-draws stay outside the captured step: one ``torch.Generator`` a member,
-called on the host before each step.
+draws ride the batched step's graph, as the JAX package's vmapped ``_vpert``
+rides its program: one ``torch.Generator`` a member, each registered with
+the graph, each member's noise from a spectral call of its own, in member
+order, the carry ``(n_p, 4, ny, nx)`` in and out. The first carry is drawn
+on the host before the first step. ``step_members`` draws the same stream
+eagerly (``_member_forcings``).
 
 A member mesh (``mesh``, the JAX ``('member',)`` and ``('member', 'y',
 'x')`` meshes) is a shape: ``(P,)`` or ``(P, dpy, dpx)``, one
@@ -174,7 +180,7 @@ class BatchedEnsemble:
         # batched body where the template's eager_reason says why (a block
         # layout)
         self._program = Captured(self._batched_body, name="ensemble step program", log=self.sim.log,
-                                 capture=self.sim.eager_reason is None)
+                                 capture=self.sim.eager_reason is None, generators=self.generators)
         self.violations = None  # the last batched step's flags, (members of this group, checks)
 
     @property
@@ -183,44 +189,59 @@ class BatchedEnsemble:
         return math.prod(self.member_mesh) > 1
 
     # -- forcing ----------------------------------------------------------
-    def _member_forcings(self, t_days: float) -> list:
-        """The shared base forcing (one provider call), then the forcing of
-        each of this group's members: the base for the control, else the
-        base perturbed by the member's AR(1) carry advanced with a fresh
-        draw of its stream. Global planes."""
-        base = self.sim.forcing_provider(t_days, self.sim.time_init)
-        if not self.generators:
-            return [base] * len(self.members)
-        if self._ran is None:
+    def _base_forcing(self, t_days: float):
+        """The shared base forcing (one provider call), global planes; the
+        perturbed members' first AR(1) carry drawn before the first step."""
+        if self.generators and self._ran is None:
             self._ran = torch.stack([self._pert._draw_stack(g) for g in self.generators])
-        out, ran = [base] if self.members[0] == 0 else [], []
+        return self.sim.forcing_provider(t_days, self.sim.time_init)
+
+    def _perturb(self, base, ran):
+        """(the forcing of each of this group's members, the carry
+        advanced): the base for the control, else the base perturbed by the
+        member's AR(1) carry advanced with a fresh draw of its stream."""
+        if not self.generators:
+            return [base] * len(self.members), ran
+        out, rans = [base] if self.members[0] == 0 else [], []
         for k, g in enumerate(self.generators):
-            r, f = self._pert._advance(self._ran[k], self._pert._draw_stack(g), base)
-            ran.append(r)
+            r, f = self._pert._advance(ran[k], self._pert._draw_stack(g), base)
+            rans.append(r)
             out.append(f)
-        self._ran = torch.stack(ran)
+        return out, torch.stack(rans)
+
+    def _member_forcings(self, t_days: float) -> list:
+        """Each of this group's members' forcing for the step that ends at
+        ``t_days``, drawn eagerly (``step_members``)."""
+        out, self._ran = self._perturb(self._base_forcing(t_days), self._ran)
         return out
 
     # -- stepping ---------------------------------------------------------
     def step(self) -> None:
         """Advance every member one step: the batched step, one graph replay
-        on the card (on blocks, the eager batched body)."""
+        on the card, the members' draws inside it (on blocks, the eager
+        batched body)."""
         sim = self.sim
         t_next = sim.time_init + (self.pcpt + 1) * sim.dt * dates.DAYS_IN_SEC
-        forcing = sim.to_blocks(stack_forcings(self._member_forcings(t_next)))
+        base = self._base_forcing(t_next)
         flags = sim.time_flags([sim.time_info_at(sim.time_init + self.pcpt * sim.dt * dates.DAYS_IN_SEC)])
-        self.states, self.violations = self._program(self.states, forcing, flags)
+        self.states, self.violations, self._ran = self._program(self.states, base, flags, self._ran)
         self._after_step()
 
-    def _batched_body(self, states, forcing, flags):
-        """The captured program: ``Simulator.batched_step_fn`` on the stack,
-        the time flags ``flags[0]`` in ``TIME_FLAGS`` order: (states',
-        violation flags)."""
+    def _batched_body(self, states, base, flags, ran):
+        """The captured program: every perturbed member's draw and AR(1)
+        update on the provider's forcing ``base`` (``_perturb``; ``ran``
+        the carry, None without a perturbed member), the members' forcings
+        stacked (cut into blocks on a block layout), then
+        ``Simulator.batched_step_fn`` on the stack, the time flags
+        ``flags[0]`` in ``TIME_FLAGS`` order: (states', violation flags,
+        ran')."""
         from nextsim_tpu_torch.model.simulator import TIME_FLAGS
 
+        forcings, ran = self._perturb(base, ran)
+        forcing = self.sim.to_blocks(stack_forcings(forcings))
         tinfo = {key: flags[0, j] for j, key in enumerate(TIME_FLAGS)}
         states, _diag, viol = self.sim.batched_step_fn(states, forcing, tinfo)
-        return states, viol
+        return states, viol, ran
 
     def step_members(self) -> None:
         """Advance every member one step, one after the other, through the

@@ -20,8 +20,20 @@ a member's ``torch.Generator`` (seeded ``seed * 1000003 + member``, one stream
 a member, drawn on the device), and ``spectral_noise`` turns phases into unit
 fields. A member's stream is the same whether it runs alone in a
 ``Simulator`` or inside ``BatchedEnsemble``: each member draws from its own
-generator, on the host's side of the batched step (``stack_forcings`` then
-puts the members' forcings on a member axis).
+generator, with a spectral call of its own (``stack_forcings`` then puts the
+members' forcings on a member axis).
+
+The draws ride the step programs, as in the JAX package's chunk program:
+``apply`` (``(ran, base forcing) -> (ran', perturbed forcing)``, one draw)
+runs inside ``Simulator._chunk_body`` and the batched ensemble's body, and
+on the card inside their CUDA graphs, with the generators registered
+(``model/captured.py``). ``init_state`` stays a host call, made once before
+the first program call. ``EnsembleForcing._ran`` and ``.generator`` are a
+member's single carry: the eager provider call (``__call__``) and the
+programs read and write the same two, so steps, chunks and eager steps
+interleave as one stream (the JAX package keeps two carries, ROADMAP C).
+The warm-up call before a capture fills ``_amplitude``'s cache and cuFFT's
+plan for the shape, so a capture creates neither.
 """
 
 from __future__ import annotations
@@ -181,12 +193,14 @@ class EnsembleForcing:
         return ran, f.replace(**updates)
 
     def init_state(self) -> torch.Tensor:
-        """The initial AR(1) carry (4, ny, nx): one draw."""
+        """The initial AR(1) carry (4, ny, nx): one draw, a host call made
+        once before the first step."""
         return self._draw_stack(self.generator)
 
     def apply(self, ran, forcing):
-        """Advance the AR(1) carry one model step and perturb ``forcing``:
-        (ran', forcing')."""
+        """Advance the AR(1) carry one model step with one draw of the
+        member's stream and perturb ``forcing``: (ran', forcing'). Pure but
+        for the generator; reads nothing back, so a CUDA graph holds it."""
         return self._advance(ran, self._draw_stack(self.generator), forcing)
 
     def __call__(self, t_days: float, time_init_days: float):

@@ -23,6 +23,17 @@ Called with CUDA tensors it:
 * returns copies of the graph's outputs, which the next replay does not
   overwrite.
 
+``generators`` names the ``torch.Generator`` objects whose draws ``fn``
+makes (a list, or a callable that returns one at each capture): a perturbed
+member's noise stream, the batched ensemble's member streams. Each graph
+registers every one (``CUDAGraph.register_generator_state``) before its
+capture. The warm-up draws eagerly and advances them, as the first call's
+draws; the capture advances none of them (checked); each replay advances
+each by the graph's whole increment and draws where an eager call would, so
+warm-up and replays follow the eager sequence bit for bit, and a
+``set_state`` between calls sets where the next replay draws. A generator
+that cannot be registered raises.
+
 A failed capture or replay raises; nothing falls back to the eager call.
 Python's garbage collector is off during a capture (a graph destroyed by a
 collection frees device memory, which a capture cannot hold). The
@@ -129,12 +140,25 @@ def upload(graph) -> bool:
     return cuda.cuGraphUpload(ctypes.c_void_p(raw), ctypes.c_void_p(stream)) == 0
 
 
+def _register(graph, generators, name):
+    """Registers every generator's state with ``graph`` before its capture;
+    returns their states. Raises where this PyTorch cannot register one."""
+    register = getattr(graph, "register_generator_state", None)
+    if generators and register is None:
+        raise RuntimeError(f"{name}: this PyTorch cannot register a generator with a CUDA graph "
+                           "(CUDAGraph.register_generator_state), and the program draws from one")
+    for g in generators:
+        register(g)
+    return [g.get_state() for g in generators]
+
+
 class _Graph:
     """One captured structure: its static inputs, graph and outputs."""
 
-    def __init__(self, fn, treedef, leaves, log, name):
+    def __init__(self, fn, treedef, leaves, log, name, generators=()):
         """Sets up the buffers, runs the warm-up (its result in
-        ``self.result``, handed to the caller once) and captures."""
+        ``self.result``, handed to the caller once) and captures, with
+        ``generators`` registered."""
         self.static = [torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in leaves]
         torch._foreach_copy_(self.static, list(leaves))
         self._src = list(leaves)
@@ -149,6 +173,7 @@ class _Graph:
             counted = [m.launches for m in _COUNTERS]
             t0 = time.perf_counter()
             self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            drawn = _register(self.graph, generators, name)
             # no garbage collection during the capture: a collected graph's
             # destruction frees device memory, which invalidates a capture
             gc.collect()
@@ -161,6 +186,8 @@ class _Graph:
                 if gc_was_on:
                     gc.enable()
             t1 = time.perf_counter()
+            if any(not torch.equal(g.get_state(), st) for g, st in zip(generators, drawn)):
+                raise RuntimeError(f"{name}: the capture advanced a registered generator")
             self.launches = [m.launches - c for m, c in zip(_COUNTERS, counted)]
             for m, c in zip(_COUNTERS, counted):
                 m.launches = c
@@ -177,6 +204,7 @@ class _Graph:
             "pool_bytes": torch.cuda.memory_reserved() - reserved,
             "kernel_launches": self.launches[0],
             "welding_launches": self.launches[1],
+            "generators": len(generators),
         }
         if log is not None:
             log.info(f"{name}: captured a CUDA graph of {nodes} nodes in {self.stats['capture_s']:.2f} s, "
@@ -199,14 +227,22 @@ class _Graph:
         return _copies(self.out_def, self.out_leaves)
 
 
+def _weak(fn):
+    """A callable that returns ``fn``: weakly held where it is a bound method."""
+    return weakref.WeakMethod(fn) if inspect.ismethod(fn) else (lambda: fn)
+
+
 class Captured:
     """``fn`` as a replay of a CUDA graph on the card (see the module's
-    docstring); ``capture=False`` calls ``fn`` on every device."""
+    docstring); ``capture=False`` calls ``fn`` on every device;
+    ``generators``: the generators ``fn`` draws from, a list or a callable
+    that returns one."""
 
-    def __init__(self, fn: Callable, name: str = "program", log=None, capture: bool = True):
+    def __init__(self, fn: Callable, name: str = "program", log=None, capture: bool = True, generators=()):
         # a bound method is held weakly, so that its object and its graphs
         # are freed when the caller drops it, not by a later collection
-        self._fn = weakref.WeakMethod(fn) if inspect.ismethod(fn) else (lambda: fn)
+        self._fn = _weak(fn)
+        self._generators = _weak(generators)
         self.name = name
         self.log = log
         self.capture = capture
@@ -215,6 +251,12 @@ class Captured:
     @property
     def fn(self) -> Callable:
         return self._fn()
+
+    @property
+    def generators(self) -> list:
+        """The generators the function draws from, as a list."""
+        gens = self._generators()
+        return list(gens() if callable(gens) else gens)
 
     def __call__(self, *args):
         leaves, treedef = flatten(args)
@@ -225,7 +267,8 @@ class Captured:
             return self.fn(*args)
         g = self.graphs.get(treedef)
         if g is None:
-            g = self.graphs[treedef] = _Graph(self.fn, treedef, leaves, self.log, self.name)
+            g = self.graphs[treedef] = _Graph(self.fn, treedef, leaves, self.log, self.name,
+                                              self.generators)
             result, g.result = g.result, None
             return result
         return g.replay(leaves)
@@ -234,5 +277,5 @@ class Captured:
     def stats(self) -> dict:
         """The numbers of the last graph captured: nodes, capture and
         instantiation seconds, pool bytes, substep-kernel and welding-kernel
-        launches."""
+        launches, generators registered."""
         return list(self.graphs.values())[-1].stats if self.graphs else {}

@@ -31,12 +31,17 @@ The violation flags are maxed on the device and read back once per chunk
 or chunk, and ``run`` clamps the chunk length so that it divides each exact
 output cadence, as the JAX package does.
 
-Two configurations keep the eager step loop (``step_eager``,
-``step_chunk_eager``, also the captured program's oracle) and log why at
-their first step: a device mesh (its rings go through torch.distributed)
-and a perturbed ensemble member (its AR(1) chain draws from a
-torch.Generator, which the JAX package advances inside its chunk program).
-FSD Roach welding is one call of a CUDA kernel on the card
+A perturbed ensemble member (``statevector.ensemble_member > 0``) is
+captured too, as the JAX package's ``chunk_fn_pert``: the host gathers the
+unperturbed provider's forcing (``EnsembleForcing.provider``) with the
+overlays, and the body draws the member's noise, advances its AR(1) carry
+(``_pert_state``) and perturbs each step's forcing before the step and the
+moorings' sums read it, the generator registered with the graph. The
+overlays write other fields than the noise, so perturbing after them gives
+the bits of the eager loop, which perturbs first. Only a device mesh keeps
+the eager step loop (``step_eager``, ``step_chunk_eager``, also the captured
+program's oracle) and logs why at its first step: its rings go through
+torch.distributed. FSD Roach welding is one call of a CUDA kernel on the card
 (``fsd.welding_roach``: a memset and two launches), which reads nothing
 back, so the wave path is captured too.
 
@@ -214,12 +219,15 @@ class Simulator:
         self.forcing_provider = make_provider(cfg, self.grid, self.dtype, device=self.device)
         # ensemble member > 0: perturbed forcing (reference: #ifdef ENSEMBLE,
         # externaldata.cpp:244-278; modules/enkf/perturbation). The AR(1)
-        # chain advances once a provider call, so once a step on both paths
+        # chain advances once a step: in the provider call on the eager
+        # path, in the body on the program path (``_pert_state``)
+        self._ens_pert = None
         if cfg["statevector.ensemble_member"] > 0:
             from nextsim_tpu_torch.ensemble.perturbation import EnsembleForcing
 
-            self.forcing_provider = EnsembleForcing(self.forcing_provider, self.grid, cfg,
-                                                    dtype=self.dtype, device=self.device)
+            self._ens_pert = EnsembleForcing(self.forcing_provider, self.grid, cfg,
+                                             dtype=self.dtype, device=self.device)
+            self.forcing_provider = self._ens_pert
 
         # nesting sponge (reference: forcingNesting fe.cpp:11060-11130):
         # (params, per-cell weight on the device, outer-run source)
@@ -296,7 +304,8 @@ class Simulator:
         self.eager_reason = self._eager_reason()
         self._eager_logged = False
         self._program = Captured(self._chunk_body, name="step program", log=self.log,
-                                 capture=self.eager_reason is None)
+                                 capture=self.eager_reason is None,
+                                 generators=[] if self._ens_pert is None else [self._ens_pert.generator])
         self._flags = {}
 
         opd = cfg["output.output_per_day"]
@@ -336,6 +345,17 @@ class Simulator:
             write_restart(self, name="initial")
 
     # ------------------------------------------------------------------
+    @property
+    def _pert_state(self) -> Optional[torch.Tensor]:
+        """A perturbed member's AR(1) carry (4, ny, nx), None before its first
+        draw (the JAX package's name): the ``EnsembleForcing``'s own, which
+        the eager provider call advances too."""
+        return None if self._ens_pert is None else self._ens_pert._ran
+
+    @_pert_state.setter
+    def _pert_state(self, ran) -> None:
+        self._ens_pert._ran = ran
+
     def host_state(self) -> State:
         """The GLOBAL state as host numpy arrays, for host consumers (IO,
         checks); collective on a device mesh."""
@@ -473,10 +493,6 @@ class Simulator:
         if self.mesh is not None:
             return ("a device mesh exchanges rings through torch.distributed inside the step "
                     "(NCCL graphs on a mesh: ROADMAP)")
-        if self.cfg["statevector.ensemble_member"] > 0:
-            return ("a perturbed ensemble member draws its AR(1) chain from a torch.Generator, "
-                    "which the JAX package advances inside its chunk program; a graph needs the "
-                    "generator registered with it (ROADMAP)")
         return None
 
     def _log_eager(self) -> None:
@@ -484,11 +500,12 @@ class Simulator:
             self._eager_logged = True
             self.log.info(f"step and step_chunk run the eager step loop on {self.device}: {self.eager_reason}")
 
-    def _step_inputs(self, i: int = 0, wim_gate: bool = True, chunked: bool = False):
+    def _step_inputs(self, i: int = 0, wim_gate: bool = True, chunked: bool = False, perturbed: bool = True):
         """The inputs of the step ``i`` steps after the current one:
-        (forcing, nest, time flags as host numbers). The provider's forcing,
-        the coupler's received fields, the outer run's fields, the WIM
-        exchange when ``wim_gate`` is set and one is due.
+        (forcing, nest, time flags as host numbers). The provider's forcing
+        (a perturbed member's unperturbed one unless ``perturbed``), the
+        coupler's received fields, the outer run's fields, the WIM exchange
+        when ``wim_gate`` is set and one is due.
 
         The overlays follow the JAX package path by path: ``step`` applies
         the WIM's fields last, so they win over a received ``wlbk`` or wave
@@ -496,7 +513,7 @@ class Simulator:
         provider's forcing and applies its fields first, so the received and
         nested fields win."""
         t = self.time_after(i)
-        forcing = self._next_forcing(t)
+        forcing = self._next_forcing(t, perturbed)
         if chunked and self.wim is not None:
             forcing = self._wim_forcing(forcing, wim_gate)
         if self.coupler is not None:
@@ -566,40 +583,58 @@ class Simulator:
                     out["__cpl_" + name] = arr
         return out
 
-    def _chunk_body(self, state, forcings, flags, nests, wim_diag):
+    def _chunk_body(self, state, forcings, flags, nests, wim_diag, ran=None):
         """k model steps on the device, the body of the step and chunk
         programs (JAX ``_build_chunk_fn``'s ``chunk_fn``): (state, the last
         step's diag, the violation flags maxed over the steps, the sums of
         ``_extract`` over the steps, the last step's ``_extract``).
         ``flags[i]`` holds step i's time flags in ``TIME_FLAGS`` order;
         ``nests`` is None or step i's outer fields (or None) at i;
-        ``wim_diag`` the WIM's diagnostics (``_wim_diag``)."""
+        ``wim_diag`` the WIM's diagnostics (``_wim_diag``). With ``ran``, a
+        perturbed member's AR(1) carry (JAX ``chunk_fn_pert``), each step
+        first advances it with one draw and perturbs its forcing, which the
+        step and ``_extract`` read; two more results then: the carry and the
+        last perturbed forcing."""
         acc = viol = diag = None
         for i, forcing in enumerate(forcings):
             tinfo = {key: flags[i, j] for j, key in enumerate(TIME_FLAGS)}
+            if ran is not None:
+                ran, forcing = self._ens_pert.apply(ran, forcing)
             state, diag, vl = self.raw_step_fn(state, forcing, tinfo, None if nests is None else nests[i])
             for key, v in wim_diag.items():
                 diag.setdefault(key, v)
             ex = self._extract(state, diag, forcing)
             acc = ex if acc is None else {key: acc[key] + ex[key] for key in acc}
             viol = vl if viol is None else torch.maximum(viol, vl)
+        if ran is not None:
+            return state, diag, viol, acc, ex, ran, forcing
         return state, diag, viol, acc, ex
 
     def _run_program(self, k: int, chunked: bool) -> None:
         """k steps as one call of the step program: the inputs gathered on
-        the host (timed as "forcing"), one graph replay on the card, then the
-        step counter, the sums into the moorings' and coupler's running
-        means, the violation flags."""
+        the host (timed as "forcing"; a perturbed member's unperturbed
+        forcing), one graph replay on the card (a perturbed member's carry
+        in and out, its first draw made here once), then the step counter,
+        the sums into the moorings' and coupler's running means, the
+        violation flags."""
+        pert = self._ens_pert
         self.timer.tick("forcing")
-        steps = [self._step_inputs(i, wim_gate=i == 0 or not chunked, chunked=chunked) for i in range(k)]
+        steps = [self._step_inputs(i, wim_gate=i == 0 or not chunked, chunked=chunked, perturbed=False)
+                 for i in range(k)]
         forcings = [f for f, _, _ in steps]
         nests = [n for _, n, _ in steps]
         flags = self.time_flags([ti for _, _, ti in steps])
         self.timer.tock("forcing")
         self.timer.tick("device_step")
-        self.state, self.diag, viol, acc, last = self._program(
-            self.state, forcings, flags, None if all(n is None for n in nests) else nests, self._wim_diag())
-        self.last_forcing = forcings[-1]  # for output.save_forcing_fields
+        args = (self.state, forcings, flags, None if all(n is None for n in nests) else nests, self._wim_diag())
+        if pert is None:
+            self.state, self.diag, viol, acc, last = self._program(*args)
+            self.last_forcing = forcings[-1]  # for output.save_forcing_fields
+        else:
+            if self._pert_state is None:
+                self._pert_state = pert.init_state()
+            self.state, self.diag, viol, acc, last, self._pert_state, self.last_forcing = self._program(
+                *args, self._pert_state)
         self.pcpt += k
         if self.coupler is not None:
             self.coupler.add_sums({key[6:]: v for key, v in acc.items() if key.startswith("__cpl_")}, k)
@@ -734,12 +769,14 @@ class Simulator:
             repl["wlbk"] = self._wim_wlbk
         return forcing.replace(**repl) if repl else forcing
 
-    def _next_forcing(self, t: Optional[float] = None):
+    def _next_forcing(self, t: Optional[float] = None, perturbed: bool = True):
         """The provider's forcing for the step that starts at ``t`` (default:
-        now); on a device mesh its ext block, cut once for a provider that
-        returns the same bundle again."""
+        now), a perturbed member's unperturbed one unless ``perturbed``; on
+        a device mesh its ext block, cut once for a provider that returns
+        the same bundle again."""
         t = self.current_time if t is None else t
-        forcing = self.forcing_provider(t + self.dt * dates.DAYS_IN_SEC, self.time_init)
+        provider = self.forcing_provider if perturbed or self._ens_pert is None else self._ens_pert.provider
+        forcing = provider(t + self.dt * dates.DAYS_IN_SEC, self.time_init)
         if self.mesh is None:
             return forcing
         if self._forcing_blocks[0] is not forcing:
@@ -775,8 +812,8 @@ class Simulator:
 
     def step(self) -> None:
         """Advance one model step: one replay of the one-step program on the
-        card (``_build_step_fn``), the eager step where ``eager_reason``
-        says why."""
+        card (a perturbed member's draw inside it), the eager step where
+        ``eager_reason`` says why."""
         if self.eager_reason is not None:
             self._log_eager()
             self.step_eager()
@@ -842,7 +879,9 @@ class Simulator:
     def _build_step_fn(self) -> Callable:
         """The one-step program (JAX ``_build_step_fn``): ``(state, forcing,
         tinfo, nest=None) -> (state, diag, violation flags)``, one graph
-        replay on the card, the eager step on the CPU."""
+        replay on the card, the eager step on the CPU. It steps the forcing
+        as given, a perturbed member's too (JAX's step function takes the
+        perturbed forcing from its provider)."""
 
         def step_fn(state, forcing, tinfo, nest=None):
             out = self._program(state, [forcing], self.time_flags([tinfo]),
@@ -854,7 +893,13 @@ class Simulator:
     def _build_chunk_fn(self, k: int) -> Callable:
         """The k-step program (JAX ``_build_chunk_fn``): ``(state, forcing0,
         forcings_rest, tinfo0, tinfos_rest, nest0=None, nests_rest=None) ->
-        (state, diag, viol, acc, last_extract)``. ``forcings_rest`` is a
+        (state, diag, viol, acc, last_extract)``; for a perturbed member
+        JAX's ``chunk_fn_pert``, ``(state, forcing0, forcings_rest, tinfo0,
+        tinfos_rest, pert_state, nest0=None, nests_rest=None) -> (state,
+        diag, viol, acc, last_extract, pert_state, last_forcing)`` on the
+        unperturbed forcing, ``pert_state`` the AR(1) carry
+        (``EnsembleForcing.init_state`` before the first call; the
+        generator advances by k draws). ``forcings_rest`` is a
         ``Forcing`` whose planes stack the k - 1 later steps on a leading
         axis (or a list of k - 1 bundles), ``tinfos_rest`` a dict of k - 1
         flags a key, ``nests_rest`` stacks the outer fields likewise. ``acc``
@@ -870,14 +915,21 @@ class Simulator:
             return [tree.replace(**{f: getattr(tree, f)[i] for f in tree.__dataclass_fields__
                                     if isinstance(getattr(tree, f), torch.Tensor)}) for i in range(n)]
 
-        def chunk_fn(state, forcing0, forcings_rest, tinfo0, tinfos_rest, nest0=None, nests_rest=None):
+        def program(state, forcing0, forcings_rest, tinfo0, tinfos_rest, nest0, nests_rest, *pert):
             forcings = [forcing0, *rest(forcings_rest, k - 1)]
             tinfos = [tinfo0, *rest(tinfos_rest, k - 1)]
             nests = [nest0, *rest(nests_rest, k - 1)]
             return self._program(state, forcings, self.time_flags(tinfos),
-                                 None if all(n is None for n in nests) else nests, self._wim_diag())
+                                 None if all(n is None for n in nests) else nests, self._wim_diag(), *pert)
 
-        return chunk_fn
+        def chunk_fn(state, forcing0, forcings_rest, tinfo0, tinfos_rest, nest0=None, nests_rest=None):
+            return program(state, forcing0, forcings_rest, tinfo0, tinfos_rest, nest0, nests_rest)
+
+        def chunk_fn_pert(state, forcing0, forcings_rest, tinfo0, tinfos_rest, pert_state, nest0=None,
+                          nests_rest=None):
+            return program(state, forcing0, forcings_rest, tinfo0, tinfos_rest, nest0, nests_rest, pert_state)
+
+        return chunk_fn if self._ens_pert is None else chunk_fn_pert
 
     def _debug_checks(self) -> None:
         if self.cfg["debugging.check_velocity_fields"]:

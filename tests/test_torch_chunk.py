@@ -25,8 +25,12 @@ the CPU the same body runs eagerly, and here it is held:
   dispatched to the kernel's launch, here a stand-in for it
   (tests/test_torch_welding.py ``emulate_kernel``), and equals the plain
   version's body bitwise;
-* the configurations that keep the eager loop on the card (a device mesh,
-  a perturbed ensemble member) name their reason and log it once;
+* a device mesh, the one configuration that keeps the eager loop on the
+  card, names its reason and logs it once; a perturbed ensemble member
+  runs the step program (JAX ``chunk_fn_pert``): its body reads nothing
+  back, and with the coupler's received fields on it equals the eager loop
+  bitwise; the JAX package's two noise carries (a fault of the reference,
+  ROADMAP C) against the port's one;
 * the port's bench (``nextsim_tpu_torch/bench.py``) keeps ``bench.py``'s
   anchor constants, metric and keys.
 """
@@ -284,19 +288,23 @@ def test_roach_welding_body_reads_nothing_back(tmp_path, monkeypatch):
 
 
 def test_eager_configurations_name_and_log_their_reason(tmp_path, caplog):
+    """Only a device mesh keeps the eager loop on the card: a perturbed
+    member has no eager reason, runs the step program (its carry the
+    program's sixth argument) and logs nothing about an eager loop."""
     base = dict(SLICES["toy_square32_thermo"], **{"dynamics.substeps": 10,
                                                  "output.exporter_path": str(tmp_path)})
     member = dict(base, **{"statevector.ensemble_member": 1})
-    for over, words in ((member, "perturbed ensemble member"),):
-        sim = PSimulator(PConfig(overrides=over), device="cpu")
-        assert words in sim.eager_reason
-        caplog.clear()
-        with caplog.at_level(logging.INFO, logger="nextsim_tpu"):
-            sim.step_chunk(2)
-            sim.step()
-        logged = [r.getMessage() for r in caplog.records if "eager step loop" in r.getMessage()]
-        assert len(logged) == 1 and words in logged[0], logged
-        assert sim.pcpt == 3 and not sim._program.graphs
+    sim = PSimulator(PConfig(overrides=member), device="cpu")
+    assert sim.eager_reason is None and sim._program.capture
+    calls = []
+    program = sim._program
+    sim._program = lambda *args: calls.append(len(args)) or program(*args)
+    caplog.clear()
+    with caplog.at_level(logging.INFO, logger="nextsim_tpu"):
+        sim.step_chunk(2)
+        sim.step()
+    assert not [r.getMessage() for r in caplog.records if "eager step loop" in r.getMessage()]
+    assert sim.pcpt == 3 and calls == [6, 6]
     # a device mesh: the rule on the Simulator's attributes (a mesh needs a
     # world of ranks; tests/test_torch_parallel.py steps one)
     plain = PSimulator(PConfig(overrides=base), device="cpu")
@@ -311,6 +319,125 @@ def test_eager_configurations_name_and_log_their_reason(tmp_path, caplog):
         PSimulator._log_eager(meshed)
     logged = [r.getMessage() for r in caplog.records if "eager step loop" in r.getMessage()]
     assert len(logged) == 1 and "device mesh" in logged[0], logged
+
+
+# ---------------------------------------------------------------------------
+# a perturbed member's program (JAX chunk_fn_pert)
+# ---------------------------------------------------------------------------
+
+def test_perturbed_body_reads_nothing_back(tmp_path):
+    """The perturbed body, moorings on: each step's draw, spectral call,
+    AR(1) update and perturbed step read nothing back from the device; it
+    returns the carry and the last perturbed forcing, which the moorings'
+    sums read (t2m)."""
+    over = dict(SLICES["toy_square32_thermo"], **DAY_EDGE, **{"statevector.ensemble_member": 2,
+                                                             "output.exporter_path": str(tmp_path)})
+    cfg = PConfig(overrides=over)
+    cfg._values["moorings.variables"] = ["conc", "velocity", "tair"]
+    psim = PSimulator(cfg, device="cpu")
+    pert = psim._ens_pert
+    ran = pert.init_state()
+    k = 2
+    forcings = [pert.provider(psim.current_time + (i + 1) * psim.dt / 86400.0, psim.time_init) for i in range(k)]
+    flags = psim.time_flags([psim.time_info_at(psim.current_time + i * psim.dt / 86400.0) for i in range(k)])
+    with _NoReadBack():
+        state, diag, viol, acc, last, ran2, last_f = psim._chunk_body(psim.state, forcings, flags, None,
+                                                                      psim._wim_diag(), ran)
+    assert int(viol.sum()) == 0 and bool(torch.isfinite(state.vt_u).all())
+    assert ran2.shape == ran.shape and not torch.equal(ran2, ran)
+    assert not torch.equal(last_f.tair, forcings[-1].tair) and last_f.ocean_u is forcings[-1].ocean_u
+    assert torch.equal(last["t2m"], last_f.tair)  # the moorings read the perturbed forcing
+
+
+def test_perturbed_chunk_fn_takes_and_returns_the_carry():
+    """A perturbed member's ``_build_chunk_fn(k)`` has JAX's ``chunk_fn_pert``
+    signature: the unperturbed forcing and the carry in, (state, diag,
+    viol, acc, last_extract, carry, last perturbed forcing) out, the
+    Simulator left as it was; it equals ``step_chunk(k)`` bitwise."""
+    from test_torch_ensemble import _pert_sim
+
+    a, b = _pert_sim(), _pert_sim()
+    pert = a._ens_pert
+    forcings = [pert.provider(a.current_time + (i + 1) * a.dt / 86400.0, a.time_init) for i in range(K)]
+    tinfos = [a.time_info_at(a.current_time + i * a.dt / 86400.0) for i in range(K)]
+    rest = {key: [ti[key] for ti in tinfos[1:]] for key in TIME_FLAGS}
+    out = a._build_chunk_fn(K)(a.state, forcings[0], forcings[1:], tinfos[0], rest, pert.init_state())
+    assert len(out) == 7 and a.pcpt == 0 and a._pert_state is None
+    b.step_chunk(K)
+    for f, v in state_to_numpy(b.state).items():
+        np.testing.assert_array_equal(state_to_numpy(out[0])[f], v, err_msg=f)
+    assert torch.equal(out[5], b._pert_state) and torch.equal(out[6].tair, b.last_forcing.tair)
+    assert torch.equal(pert.generator.get_state(), b._ens_pert.generator.get_state())
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+def test_perturbed_chunk_with_received_coupler_fields_equals_the_eager_loop(dtype_name, tmp_path):
+    """The coupler's received fields (SST, currents, wave stress, qsrml)
+    overlaid on a perturbed member's forcing: the program perturbs after
+    the overlays (the noise's fields are not theirs), the eager loop
+    before; two chunks of 2 equal the eager loop bitwise, and the last
+    forcing holds both the received fields and the noise."""
+    from test_torch_ensemble import _pert_sim, assert_same_stream
+
+    over = {"tpu.dtype": dtype_name, "coupler.with_waves": True, "coupler.timestep": 1200,
+            "output.exporter_path": str(tmp_path)}
+    a, b = _pert_sim(**over), _pert_sim(**over)
+    rng = np.random.default_rng(5)
+    cells = lambda lo, hi: torch.as_tensor(rng.uniform(lo, hi, a.grid.shape), dtype=a.dtype)  # noqa: E731
+    nodes = lambda lo, hi: torch.as_tensor(rng.uniform(lo, hi, a.grid.node_shape), dtype=a.dtype)  # noqa: E731
+    received = {"ocean_temp": cells(-1.8, -1.0), "ocean_u": nodes(-0.1, 0.1), "ocean_v": nodes(-0.1, 0.1),
+                "tau_wi_u": nodes(0.0, 0.02), "tau_wi_v": nodes(-0.01, 0.01), "qsrml": cells(0.0, 0.5)}
+    a.coupler._received, b.coupler._received = dict(received), dict(received)
+    for i in range(2):
+        a.step_chunk(2)
+        b.step_chunk_eager(2)
+        assert_same_stream(a, b, f"chunk {i}")
+    for name, v in received.items():
+        assert torch.equal(getattr(a.last_forcing, name), v), name
+    assert not torch.equal(a.last_forcing.tair, a._ens_pert.provider(a.current_time, a.time_init).tair)
+
+
+def test_the_reference_keeps_two_noise_carries():
+    """ROADMAP C, faults of the reference: the JAX package's chunk carries
+    its noise in ``Simulator._pert_state`` and its ``step()`` in
+    ``EnsembleForcing.key``/``_ran``; ``init_state()`` splits the key without
+    keeping the split, so after ``step_chunk()`` of 2 steps, ``step()``
+    perturbs with the chunk's first noise update again (constant forcing
+    here, so the forcings compare too). The port keeps one carry: that
+    sequence equals three eager steps bitwise, and its third update is
+    not its first (the chain moves ~5% a step: alpha = exp(-dt/tcorr) =
+    0.9988). A 16^2 square with thermodynamics off: the carries are the
+    point."""
+    from test_torch_ensemble import ENS, _pert_sim, assert_same_stream, rel_err
+
+    over = dict(ENS, **{"statevector.ensemble_member": 1, "tpu.steps_per_call": 2, "grid.nx": 16, "grid.ny": 16,
+                        "dynamics.substeps": 10, "thermo.use_thermo_forcing": False})
+    with jax.enable_x64(True):
+        jsim = JSimulator(JConfig(overrides=over))
+        jpert = jsim._ens_pert
+        base = jpert.provider(jsim.current_time, jsim.time_init)
+        apply = jax.jit(jpert.apply)
+        (_, first_ran), first = apply(jpert.init_state(), base)
+        jsim.step_chunk()
+        (_, next_ran), _ = apply(jsim._pert_state, base)  # where one carry would go next
+        jsim.step()
+        step_ran, step_tair = np.asarray(jpert._ran), np.asarray(jsim.last_forcing.tair)
+        first_ran, first_tair, next_ran = np.asarray(first_ran), np.asarray(first.tair), np.asarray(next_ran)
+    assert rel_err(first_ran, step_ran) <= 1e-12 and rel_err(first_tair, step_tair) <= 1e-12
+    assert rel_err(next_ran, step_ran) > 1e-3
+    pover = {k: over[k] for k in ("tpu.steps_per_call", "grid.nx", "grid.ny", "dynamics.substeps",
+                                  "thermo.use_thermo_forcing")}
+    a, b = _pert_sim(**pover), _pert_sim(**pover)
+    a.step_chunk()
+    a.step()
+    for _ in range(3):
+        b.step_eager()
+    assert_same_stream(a, b, "chunk then step")
+    c = _pert_sim(**pover)
+    c.step_eager()
+    assert rel_err(c._pert_state, a._pert_state) > 1e-3
+
+
 
 
 def test_step_chunk_equals_steps_on_time_interpolated_forcing(dataset_dir, monkeypatch):

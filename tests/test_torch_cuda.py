@@ -1081,3 +1081,100 @@ def test_batched_step_with_welding_equals_the_member_loop(cuda):
         for k in range(3):
             _equal_states(a.member_state(k), b.member_state(k), f"step {step}, member {k}")
     assert len(a._program.graphs) == 1 and a._program.stats["welding_launches"] == welding_cuda.LAUNCHES_A_CALL
+
+
+# ---------------------------------------------------------------------------
+# a perturbed member's noise inside the step and chunk graphs
+# ---------------------------------------------------------------------------
+
+def _pert464(dtype_name="float32", member=2):
+    return Simulator(Config(overrides=_bench464(**{
+        "thermo.use_thermo_forcing": True, "ideal_simul.init_SST_limit": 10.0,
+        "statevector.ensemble_member": member, "tpu.dtype": dtype_name})), device="cuda")
+
+
+def _same_stream(a, b, what):
+    """State, AR(1) carry, generator and last perturbed forcing, bitwise."""
+    _equal_states(a.state, b.state, what)
+    assert torch.equal(a._pert_state, b._pert_state), what
+    assert torch.equal(a._ens_pert.generator.get_state(), b._ens_pert.generator.get_state()), what
+    for name in ("tair", "mslp", "precip", "wind_u", "wind_v"):
+        assert torch.equal(getattr(a.last_forcing, name), getattr(b.last_forcing, name)), (what, name)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+def test_captured_perturbed_step_and_chunk_equal_the_eager_loop(cuda, dtype_name):
+    """464^2 thermo on, bbm, member 2: ``step`` (the one-step graph) and
+    ``step_chunk(3)`` (the three-step graph), each captured at its first
+    call (the warm-up draws eagerly) and replayed at the second, with the
+    member's generator registered, equal the eager loop bitwise: state,
+    carry, generator state and the last perturbed forcing."""
+    a, b = _pert464(dtype_name), _pert464(dtype_name)
+    assert a.eager_reason is None
+    per_step = _launches(a, a.dyn.substeps)
+    for i, (k, run_a, run_b) in enumerate([(1, a.step, b.step_eager), (1, a.step, b.step_eager),
+                                           (3, lambda: a.step_chunk(3), lambda: b.step_chunk_eager(3)),
+                                           (3, lambda: a.step_chunk(3), lambda: b.step_chunk_eager(3))]):
+        launches = momentum_cuda.launches
+        run_a()
+        assert momentum_cuda.launches == launches + k * per_step, i
+        run_b()
+        _same_stream(a, b, f"call {i}")
+    assert len(a._program.graphs) == 2 and a._program.stats["generators"] == 1
+
+
+def test_perturbed_replays_draw_new_noise_and_set_state_rewinds_them(cuda):
+    """Replays of the one-step graph: each draws new noise (the generator's
+    offset moves by the graph's increment, the perturbation of the constant
+    forcing changes); ``set_state`` back to an earlier generator state,
+    with the state and carry of then, makes the next replay repeat that
+    step's draws bitwise."""
+    sim = _pert464()
+    sim.step()  # the warm-up and the capture
+    base = sim._ens_pert.provider(sim.current_time, sim.time_init)
+    noise, gens = [], []
+    for _ in range(2):
+        gens.append(sim._ens_pert.generator.get_state())
+        sim.step()
+        noise.append(sim.last_forcing.tair - base.tair)
+    assert not torch.equal(noise[0], noise[1]) and not torch.equal(gens[0], gens[1])
+    assert len(sim._program.graphs) == 1
+    snap = (sim.state, sim._pert_state.clone(), sim._ens_pert.generator.get_state(), sim.pcpt)
+    sim.step()
+    first = (sim.state, sim._pert_state.clone(), sim.last_forcing.tair.clone(), sim._ens_pert.generator.get_state())
+    sim.state, sim._pert_state, sim.pcpt = snap[0], snap[1].clone(), snap[3]
+    sim._ens_pert.generator.set_state(snap[2])
+    sim.step()
+    _equal_states(first[0], sim.state, "rewound replay")
+    assert torch.equal(first[1], sim._pert_state) and torch.equal(first[2], sim.last_forcing.tair)
+    assert torch.equal(first[3], sim._ens_pert.generator.get_state())
+
+
+def test_captured_batched_draws_equal_the_member_loop_across_a_restore(cuda):
+    """464^2 thermo on, 3 members (2 perturbed): the batched step's graph
+    draws every member's noise (the generators registered) and equals
+    ``step_members`` bitwise; a snapshot of the stack, carry and generator
+    states restored before a replay repeats it bitwise, as phase 19 and a
+    checkpoint rely on."""
+    from nextsim_tpu_torch.ensemble.batched import BatchedEnsemble
+
+    over = _bench464(**{"thermo.use_thermo_forcing": True, "ideal_simul.init_SST_limit": 10.0})
+    a = BatchedEnsemble(Config(overrides=over), 3, device="cuda")
+    b = BatchedEnsemble(Config(overrides=over), 3, device="cuda")
+    a._member_forcings = None  # the batched step draws in its graph
+    for step in range(3):
+        if step == 2:
+            snap = (a.states, a._ran.clone(), [g.get_state() for g in a.generators], a.pcpt)
+            a.step()
+            once = a.states
+            a.states, a._ran, a.pcpt = snap[0], snap[1].clone(), snap[3]
+            for g, st in zip(a.generators, snap[2]):
+                g.set_state(st)
+        a.step()
+        b.step_members()
+        for k in range(3):
+            _equal_states(a.member_state(k), b.member_state(k), f"step {step}, member {k}")
+        assert torch.equal(a._ran, b._ran), step
+    _equal_states(once, a.states, "the restored replay")
+    assert len(a._program.graphs) == 1 and a._program.stats["generators"] == 2
+    assert not torch.equal(a.member_state(1).vt_u, a.member_state(2).vt_u)

@@ -302,6 +302,88 @@ def test_chunked_perturbed_run_matches_per_step():
     assert not torch.equal(b.last_forcing.tair, base.tair)  # outputs see the perturbed forcing
 
 
+# ---------------------------------------------------------------------------
+# the perturbed member's program: the draws inside the step and chunk
+# ---------------------------------------------------------------------------
+
+def _pert_sim(**over):
+    cfg = dict(ENS, **{"statevector.ensemble_member": 1, "dynamics.substeps": 20})
+    cfg.update(over)
+    return PSimulator(PConfig(overrides=cfg), device="cpu")
+
+
+def assert_same_stream(a, b, what):
+    """Two perturbed Simulators at the same point of one noise stream: the
+    state, the AR(1) carry, the generator and the last perturbed forcing,
+    bitwise."""
+    assert a.pcpt == b.pcpt, what
+    assert_states_equal(state_to_numpy(a.state), state_to_numpy(b.state), what)
+    assert torch.equal(a._pert_state, b._pert_state), what
+    assert torch.equal(a._ens_pert.generator.get_state(), b._ens_pert.generator.get_state()), what
+    for f in dataclasses.fields(a.last_forcing):
+        x, y = getattr(a.last_forcing, f.name), getattr(b.last_forcing, f.name)
+        assert (x is None) == (y is None) and (x is None or torch.equal(x, y)), (what, f.name)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+@pytest.mark.parametrize("k", [1, 3])
+def test_perturbed_program_equals_the_eager_loop(k, dtype_name, monkeypatch):
+    """A perturbed member's ``step_chunk(k)`` runs ``_run_program`` (the
+    program captured on the card, the body here) with the draws inside it,
+    and equals ``step_chunk_eager(k)`` bitwise over two calls: state, carry,
+    generator and ``last_forcing``; the last forcing is the perturbed one."""
+    a, b = _pert_sim(**{"tpu.dtype": dtype_name}), _pert_sim(**{"tpu.dtype": dtype_name})
+    assert a.eager_reason is None and a._program.generators == [a._ens_pert.generator]
+    calls = []
+    program = a._program
+    monkeypatch.setattr(a, "_program", lambda *args: calls.append(len(args)) or program(*args))
+    monkeypatch.setattr(a, "step_chunk_eager", None)  # the program path only
+    for i in range(2):
+        a.step_chunk(k)
+        b.step_chunk_eager(k)
+        assert_same_stream(a, b, f"call {i}")
+    assert calls == [6, 6]  # the carry is the program's sixth argument
+    base = a._ens_pert.provider(a.current_time, a.time_init)
+    assert not torch.equal(a.last_forcing.tair, base.tair) and a.last_forcing.tair.dtype == a.dtype
+
+
+def test_step_chunk_and_eager_steps_interleave_as_one_stream():
+    """``step``, ``step_chunk(2)`` and ``step_eager`` in turns read and write
+    one carry and one generator: they equal four eager steps bitwise."""
+    a, b = _pert_sim(), _pert_sim()
+    a.step()
+    a.step_chunk(2)
+    a.step_eager()
+    for _ in range(4):
+        b.step_eager()
+    assert_same_stream(a, b, "interleaved")
+
+
+def test_perturbed_chunk_matches_jax(monkeypatch):
+    """float64, member 1, ``tpu.steps_per_call=3``: the port's
+    ``step_chunk()`` on JAX's draws against the JAX package's
+    ``step_chunk()`` (``chunk_fn_pert``), every field within 1e-9 of its
+    magnitude, the carry and the last perturbed forcing within 1e-12."""
+    over = dict(ENS, **{"statevector.ensemble_member": 1, "tpu.steps_per_call": STEPS})
+    with jax.enable_x64(True):
+        jsim = JSimulator(JConfig(overrides=over))
+        init = jax_to_numpy(jsim.state)
+        stacks = jax_stacks(jsim._ens_pert, 1, STEPS)
+        jsim.step_chunk()
+        ref, ref_ran = jax_to_numpy(jsim.state), np.asarray(jsim._pert_state[1])
+        ref_forcing = {f.name: np.asarray(getattr(jsim.last_forcing, f.name))
+                       for f in dataclasses.fields(jsim.last_forcing) if getattr(jsim.last_forcing, f.name) is not None}
+    psim = PSimulator(PConfig(overrides=over), device="cpu")
+    psim.state = state_from_numpy(init, device="cpu")
+    inject(monkeypatch, psim._ens_pert, {psim._ens_pert.generator: stacks})
+    psim.step_chunk()
+    assert psim.pcpt == jsim.pcpt == STEPS
+    assert_states_close(ref, state_to_numpy(psim.state), 1e-9, "member 1, one chunk")
+    assert rel_err(ref_ran, psim._pert_state) <= 1e-12
+    for name, r in ref_forcing.items():
+        assert rel_err(r, getattr(psim.last_forcing, name)) <= 1e-12, name
+
+
 def test_batched_ensemble_matches_jax(jax_runs, monkeypatch):
     ens = PBatchedEnsemble(PConfig(overrides=dict(ENS)), 3, device="cpu")
     init = state_from_numpy(jax_runs.init, device="cpu")
@@ -355,15 +437,44 @@ def test_batched_step_equals_the_member_loop_bitwise(dyn_type, dtype_name):
 
 
 def test_batched_step_reads_nothing_back():
+    """The batched body, the perturbed members' draws included, reads
+    nothing back from the device."""
     ens = PBatchedEnsemble(PConfig(overrides=dict(ENS)), 3, device="cpu")
     sim = ens.sim
-    forcing = stack_forcings(ens._member_forcings(sim.current_time + sim.dt / 86400.0))
+    base = ens._base_forcing(sim.current_time + sim.dt / 86400.0)
+    forcing = stack_forcings(ens._perturb(base, ens._ran)[0])
     assert forcing.tair.shape == (3, 24, 24) and forcing.ocean_u.shape == (25, 25)
     flags = sim.time_flags([sim.time_info_at(sim.current_time)])
     with _NoReadBack():
-        states, viol = ens._batched_body(ens.states, forcing, flags)
+        states, viol, ran = ens._batched_body(ens.states, base, flags, ens._ran)
     assert tuple(states.tice.shape) == (3, 3, 24, 24) and viol.shape[0] == 3 and int(viol.sum()) == 0
-    assert bool(torch.isfinite(states.vt_u).all())
+    assert bool(torch.isfinite(states.vt_u).all()) and tuple(ran.shape) == (2, 4, 24, 24)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64"])
+def test_batched_step_draws_inside_its_body(dtype_name, monkeypatch):
+    """``step`` (the batched step's program, the draws in its body; the
+    generators registered with its graph on the card) never calls
+    ``_member_forcings`` and equals ``step_members`` (the eager draws)
+    bitwise: every member, the carry and every generator's state."""
+    over = dict(ENS, **{"dynamics.substeps": 20, "tpu.dtype": dtype_name})
+    a = PBatchedEnsemble(PConfig(overrides=over), 3, device="cpu")
+    b = PBatchedEnsemble(PConfig(overrides=over), 3, device="cpu")
+    assert a._program.generators == a.generators and len(a.generators) == 2
+
+    def refuse(t_days):
+        raise AssertionError("BatchedEnsemble.step drew on the host")
+
+    monkeypatch.setattr(a, "_member_forcings", refuse)
+    for step in range(STEPS):
+        a.step()
+        b.step_members()
+        for k in range(3):
+            assert_states_equal(state_to_numpy(a.member_state(k)), state_to_numpy(b.member_state(k)),
+                                f"step {step}, member {k}")
+        assert torch.equal(a._ran, b._ran), step
+        for ga, gb in zip(a.generators, b.generators):
+            assert torch.equal(ga.get_state(), gb.get_state()), step
 
 
 # ---------------------------------------------------------------------------
