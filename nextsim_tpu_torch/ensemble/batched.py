@@ -86,6 +86,7 @@ from nextsim_tpu_torch.ensemble.perturbation import (EnsembleForcing, Perturbati
                                                      stack_forcings)
 from nextsim_tpu_torch.model.captured import Captured
 from nextsim_tpu_torch.utils import dates
+from nextsim_tpu_torch.utils.timer import phase
 
 
 def _fields(state):
@@ -237,8 +238,9 @@ class BatchedEnsemble:
         ran')."""
         from nextsim_tpu_torch.model.simulator import TIME_FLAGS
 
-        forcings, ran = self._perturb(base, ran)
-        forcing = self.sim.to_blocks(stack_forcings(forcings))
+        with phase("perturb"):
+            forcings, ran = self._perturb(base, ran)
+            forcing = self.sim.to_blocks(stack_forcings(forcings))
         tinfo = {key: flags[0, j] for j, key in enumerate(TIME_FLAGS)}
         states, _diag, viol = self.sim.batched_step_fn(states, forcing, tinfo)
         return states, viol, ran

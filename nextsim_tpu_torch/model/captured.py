@@ -43,12 +43,28 @@ through ``Simulator.raw_step_fn``, never through a graph.
 and welding kernels' launches that a replay makes: the capture records them
 without running them, so each count is set back after the capture and
 raised by that many at every replay.
+
+Each graph's ``stats`` also hold ``warmup_s``, the warm-up call's seconds up
+to its synchronize, and ``phases``, the graph's phase table: the step's
+``utils.timer.phase`` contexts mark their boundaries in the graph under
+capture (``PhaseMarks``: the capture's tail node at each boundary, from
+``cuStreamGetCaptureInfo_v2``), and after the capture the graph's nodes are
+listed in the order they run, each with the phase it lies in and its kind
+(``kernel``, ``memset``, ``memcpy`` or ``other``), as runs ``[phase, kind,
+count]``; a node outside every phase is ``unattributed``. One stream makes
+the graph a chain, so the order is the chain's. Where libcuda lacks a
+call, or the graph is no chain, ``phases`` is None and the log line says
+why. The table costs ``phases_s`` of set-up, two calls into libcuda a
+node. The marks add no node: a replay runs the same graph whether or not
+anyone reads the table.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import functools
 import gc
 import inspect
 import time
@@ -58,6 +74,7 @@ from typing import Callable, Optional
 import torch
 
 from nextsim_tpu_torch.ops import momentum_cuda, welding_cuda
+from nextsim_tpu_torch.utils import timer
 
 #: the wrappers whose ``launches`` count their kernel's launches
 _COUNTERS = (momentum_cuda, welding_cuda)
@@ -140,6 +157,140 @@ def upload(graph) -> bool:
     return cuda.cuGraphUpload(ctypes.c_void_p(raw), ctypes.c_void_p(stream)) == 0
 
 
+#: libcuda's node types (CUgraphNodeType) that a phase table names;
+#: every other type is "other"
+NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+_CAPTURE_ACTIVE = 1  # CU_STREAM_CAPTURE_STATUS_ACTIVE
+
+
+@functools.lru_cache(maxsize=1)
+def _libcuda():
+    """``libcuda.so.1`` with the calls the phase table makes declared, or
+    None where it cannot be loaded."""
+    try:
+        cuda = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return None
+    p = ctypes.POINTER
+    for name, args in (
+            ("cuStreamGetCaptureInfo_v2", [ctypes.c_void_p, p(ctypes.c_int), p(ctypes.c_uint64),
+                                           p(ctypes.c_void_p), p(p(ctypes.c_void_p)), p(ctypes.c_size_t)]),
+            ("cuGraphGetNodes", [ctypes.c_void_p, p(ctypes.c_void_p), p(ctypes.c_size_t)]),
+            ("cuGraphNodeGetDependencies", [ctypes.c_void_p, p(ctypes.c_void_p), p(ctypes.c_size_t)]),
+            ("cuGraphNodeGetType", [ctypes.c_void_p, p(ctypes.c_int)])):
+        fn = getattr(cuda, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = args, ctypes.c_int
+    return cuda
+
+
+class PhaseMarks:
+    """The phase boundaries of one stream capture (``utils.timer.recording``):
+    at each, the capture's tail nodes and the phase that starts after them.
+    ``error`` says why no table can be made from them, or is None."""
+
+    def __init__(self):
+        self.marks = []
+        self.graph = None  # the graph under capture, as libcuda names it
+        self.error = None
+        cuda = _libcuda()
+        self._info = None if cuda is None else getattr(cuda, "cuStreamGetCaptureInfo_v2", None)
+        if self._info is None:
+            self.error = "libcuda has no cuStreamGetCaptureInfo_v2"
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        self._mark(name)
+        try:
+            yield
+        finally:
+            self._mark(timer.UNATTRIBUTED)
+
+    def _mark(self, name: str) -> None:
+        if self.error is not None:
+            return
+        status, cid, graph = ctypes.c_int(), ctypes.c_uint64(), ctypes.c_void_p()
+        deps, n = ctypes.POINTER(ctypes.c_void_p)(), ctypes.c_size_t()
+        stream = torch.cuda.current_stream().cuda_stream
+        err = self._info(stream, ctypes.byref(status), ctypes.byref(cid), ctypes.byref(graph),
+                         ctypes.byref(deps), ctypes.byref(n))
+        if err or status.value != _CAPTURE_ACTIVE:
+            self.error = f"cuStreamGetCaptureInfo_v2 gave error {err}, capture status {status.value}"
+        elif self.graph is not None and graph.value != self.graph:
+            self.error = "a phase boundary saw another graph under capture"
+        else:
+            self.graph = graph.value
+            self.marks.append((tuple(deps[i] for i in range(n.value)), name))
+
+
+def phase_table(graph, marks: PhaseMarks):
+    """(the phase table of a graph captured with ``keep_graph=True``, None)
+    from the marks of its capture, or (None, why not). libcuda lists a
+    captured chain's nodes in the order they were captured; each node's
+    dependencies and kind are asked for one at a time (listing the graph's
+    edges at once takes seconds on a graph of ~140k nodes)."""
+    if marks.error is not None:
+        return None, marks.error
+    cuda = _libcuda()
+    if cuda is None or any(getattr(cuda, f, None) is None
+                           for f in ("cuGraphGetNodes", "cuGraphNodeGetDependencies", "cuGraphNodeGetType")):
+        return None, "libcuda lacks cuGraphGetNodes, cuGraphNodeGetDependencies or cuGraphNodeGetType"
+    try:
+        raw = graph.raw_cuda_graph()
+    except (AttributeError, RuntimeError) as e:
+        return None, f"no raw graph: {e}"
+    if marks.graph is not None and marks.graph != raw:
+        return None, "the marks were taken on another graph"
+    n = ctypes.c_size_t(0)
+    if cuda.cuGraphGetNodes(raw, None, ctypes.byref(n)):
+        return None, "cuGraphGetNodes failed"
+    listed = (ctypes.c_void_p * n.value)()
+    if cuda.cuGraphGetNodes(raw, listed, ctypes.byref(n)):
+        return None, "cuGraphGetNodes failed"
+    nodes, deps, kinds = list(listed), [], []
+    two, k, kind = (ctypes.c_void_p * 2)(), ctypes.c_size_t(), ctypes.c_int()
+    for node in nodes:
+        k.value = 2
+        if cuda.cuGraphNodeGetDependencies(node, two, ctypes.byref(k)) or \
+                cuda.cuGraphNodeGetType(node, ctypes.byref(kind)):
+            return None, "cuGraphNodeGetDependencies or cuGraphNodeGetType failed"
+        deps.append(tuple(two[:k.value]))
+        kinds.append(NODE_KINDS.get(kind.value, "other"))
+    return chain_table(nodes, deps, kinds, marks.marks)
+
+
+def chain_table(nodes, deps, kinds, marks):
+    """The phase table of a graph from its ``nodes`` as libcuda lists them,
+    each node's ``deps`` (a tuple) and ``kinds``, and the capture's
+    ``marks``, (tail nodes, phase) at each boundary in order (a phase starts
+    after its tail node, or at the first node where it has none):
+    (runs ``[phase, kind, count]`` in the list's order, None), or (None, why
+    not) unless each node depends on the one listed before it alone, which
+    makes the list the graph's one chain."""
+    if any(d != ((nodes[i - 1],) if i else ()) for i, d in enumerate(deps)):
+        return None, "the graph is no chain in the order its nodes are listed"
+    start, starts = timer.UNATTRIBUTED, {}
+    for tail, name in marks:
+        if len(tail) > 1:
+            return None, f"a phase boundary saw {len(tail)} tail nodes: the capture is no chain"
+        if not tail:
+            if starts:
+                return None, "a phase boundary saw no tail node after the graph's first"
+            start = name
+        else:
+            starts[tail[0]] = name
+    if not set(starts) <= set(nodes):
+        return None, "a phase boundary's tail node is not in the graph"
+    table, name = [], start
+    for node, kind in zip(nodes, kinds):
+        if table and table[-1][0] == name and table[-1][1] == kind:
+            table[-1][2] += 1
+        else:
+            table.append([name, kind, 1])
+        name = starts.get(node, name)
+    return table, None
+
+
 def _register(graph, generators, name):
     """Registers every generator's state with ``graph`` before its capture;
     returns their states. Raises where this PyTorch cannot register one."""
@@ -165,9 +316,11 @@ class _Graph:
         self._ver = [x._version for x in leaves]
         args = unflatten(treedef, self.static)
         with torch.no_grad():
+            t0 = time.perf_counter()
             out_leaves, out_def = flatten(fn(*args))
             self.result = _copies(out_def, out_leaves)
             torch.cuda.synchronize()
+            warmup_s = time.perf_counter() - t0
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved()
             counted = [m.launches for m in _COUNTERS]
@@ -179,8 +332,9 @@ class _Graph:
             gc.collect()
             gc_was_on = gc.isenabled()
             gc.disable()
+            marks = PhaseMarks()
             try:
-                with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                with torch.cuda.graph(self.graph, capture_error_mode="thread_local"), timer.recording(marks):
                     out = fn(*args)
             finally:
                 if gc_was_on:
@@ -192,24 +346,32 @@ class _Graph:
             for m, c in zip(_COUNTERS, counted):
                 m.launches = c
             nodes = graph_nodes(self.graph)
+            t2 = time.perf_counter()
+            phases, why = phase_table(self.graph, marks)
+            t3 = time.perf_counter()
             self.graph.instantiate()
             uploaded = upload(self.graph)
             torch.cuda.synchronize()
         self.out_leaves, self.out_def = flatten(out)
         self.stats = {
             "nodes": nodes,
+            "warmup_s": warmup_s,
             "capture_s": t1 - t0,
-            "instantiate_s": time.perf_counter() - t1,  # the upload included
+            "phases_s": t3 - t2,
+            "instantiate_s": time.perf_counter() - t1 - (t3 - t2),  # the upload included
             "uploaded": uploaded,
             "pool_bytes": torch.cuda.memory_reserved() - reserved,
             "kernel_launches": self.launches[0],
             "welding_launches": self.launches[1],
             "generators": len(generators),
+            "phases": phases,
         }
         if log is not None:
-            log.info(f"{name}: captured a CUDA graph of {nodes} nodes in {self.stats['capture_s']:.2f} s, "
-                     f"instantiated in {self.stats['instantiate_s']:.2f} s, pool "
-                     f"{self.stats['pool_bytes'] / 2**20:.1f} MiB")
+            log.info(f"{name}: warm-up call {warmup_s:.2f} s; captured a CUDA graph of {nodes} nodes in "
+                     f"{self.stats['capture_s']:.2f} s, instantiated in {self.stats['instantiate_s']:.2f} s, "
+                     f"pool {self.stats['pool_bytes'] / 2**20:.1f} MiB; "
+                     + (f"phase table of {len(phases)} runs in {t3 - t2:.2f} s" if phases is not None
+                        else f"no phase table: {why}"))
 
     def replay(self, leaves):
         dst, src = [], []
@@ -275,7 +437,7 @@ class Captured:
 
     @property
     def stats(self) -> dict:
-        """The numbers of the last graph captured: nodes, capture and
-        instantiation seconds, pool bytes, substep-kernel and welding-kernel
-        launches, generators registered."""
+        """The numbers of the last graph captured: nodes, warm-up, capture,
+        phase-table and instantiation seconds, pool bytes, substep-kernel and
+        welding-kernel launches, generators registered, the phase table."""
         return list(self.graphs.values())[-1].stats if self.graphs else {}

@@ -100,6 +100,7 @@ The options that tune JAX's compilation and TPU kernels
 from __future__ import annotations
 
 import functools
+import json
 import math
 import os
 from typing import Callable, List, Optional
@@ -122,7 +123,7 @@ from nextsim_tpu_torch.output.drifters import instantiate_drifters
 from nextsim_tpu_torch.parallel import multihost, seam
 from nextsim_tpu_torch.utils import async_writer, dates
 from nextsim_tpu_torch.utils.logging import get_logger
-from nextsim_tpu_torch.utils.timer import Timer
+from nextsim_tpu_torch.utils.timer import Timer, phase
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
 
@@ -395,12 +396,14 @@ class Simulator:
         diag = {}
         # ---- thermodynamics (reference: fe.cpp:8140 -> thermo()) ---------
         if self.use_thermo:
-            state, tdiag = thermo.thermo_step(state, forcing, ga, self.dt, self.thermo_params,
-                                              tinfo=tinfo, fsd_params=self.fsd_params,
-                                              fsd_bins=self.fsd_bins)
+            with phase("thermo"):
+                state, tdiag = thermo.thermo_step(state, forcing, ga, self.dt, self.thermo_params,
+                                                  tinfo=tinfo, fsd_params=self.fsd_params,
+                                                  fsd_bins=self.fsd_bins)
             diag.update(tdiag)
         if self.fsd_params is not None:
-            state = self._fsd_block(state, forcing, diag)
+            with phase("fsd"):
+                state = self._fsd_block(state, forcing, diag)
         # ---- dynamics (reference: fe.cpp:8197-8221) ----------------------
         if dyn.dynamics_type in ("bbm", "evp", "mevp"):
             state, mdiag = momentum.explicit_solve(state, forcing, ga, self.dt, dyn, exchanger)
@@ -409,21 +412,24 @@ class Simulator:
             state = momentum.free_drift(state, forcing, ga, self.dt, dyn)
         # ---- transport + ridging (fe.cpp:8221, 3919) ---------------------
         if dyn.dynamics_type != "no_motion":
-            state, vdiag = transport.transport_and_ridge(
-                state, ga, self.dt, self.transport_params
-            )
+            with phase("transport"):
+                state, vdiag = transport.transport_and_ridge(
+                    state, ga, self.dt, self.transport_params
+                )
             diag.update(vdiag)
         # ---- nesting sponge: relax toward the outer run (reference:
         # nestingIce/nestingDynamics each step, fe.cpp:8172-8192)
         if nest is not None:
             npar, weight, _source = self.nesting
-            state = nesting.apply_nesting(state, nest, weight, npar)
+            with phase("nesting"):
+                state = nesting.apply_nesting(state, nest, weight, npar)
         owned = None
-        if exchanger is not None:
-            state = exchanger.ring_state(state)
-            owned = exchanger.owned
-        return state, diag, checks.violations(state, use_young_ice=dyn.use_young_ice, owned=owned,
-                                              members=members)
+        with phase("checks"):
+            if exchanger is not None:
+                state = exchanger.ring_state(state)
+                owned = exchanger.owned
+            viol = checks.violations(state, use_young_ice=dyn.use_young_ice, owned=owned, members=members)
+        return state, diag, viol
 
     def raw_step_fn(self, state, forcing, tinfo, nest=None):
         """The JAX package's name for the step function: (state', diag,
@@ -545,11 +551,12 @@ class Simulator:
     def _advance(self, wim_gate: bool = True, chunked: bool = False) -> None:
         """One eager step: its inputs (host, timed as "forcing"), the device
         step, the step counter; violations and the coupler's sums accumulate
-        on the device."""
+        on the device. The Timer node "enqueue" is the host's time to issue
+        the step, not the device's: nothing synchronizes."""
         self.timer.tick("forcing")
         forcing, nest, tinfo = self._step_inputs(0, wim_gate, chunked)
         self.timer.tock("forcing")
-        self.timer.tick("device_step")
+        self.timer.tick("enqueue")
         self.state, self.diag, viol = self.raw_step_fn(self.state, forcing, tinfo, nest)
         self.last_forcing = forcing  # for output.save_forcing_fields
         for key, v in self._wim_diag().items():
@@ -561,7 +568,7 @@ class Simulator:
         if self.check_fast:
             prev = self._pending_viol
             self._pending_viol = viol if prev is None else torch.maximum(prev, viol)
-        self.timer.tock("device_step")
+        self.timer.tock("enqueue")
 
     # ------------------------------------------------------------------
     def _extract(self, state, diag, forcing) -> dict:
@@ -599,13 +606,15 @@ class Simulator:
         for i, forcing in enumerate(forcings):
             tinfo = {key: flags[i, j] for j, key in enumerate(TIME_FLAGS)}
             if ran is not None:
-                ran, forcing = self._ens_pert.apply(ran, forcing)
+                with phase("perturb"):
+                    ran, forcing = self._ens_pert.apply(ran, forcing)
             state, diag, vl = self.raw_step_fn(state, forcing, tinfo, None if nests is None else nests[i])
             for key, v in wim_diag.items():
                 diag.setdefault(key, v)
-            ex = self._extract(state, diag, forcing)
-            acc = ex if acc is None else {key: acc[key] + ex[key] for key in acc}
-            viol = vl if viol is None else torch.maximum(viol, vl)
+            with phase("sums"):
+                ex = self._extract(state, diag, forcing)
+                acc = ex if acc is None else {key: acc[key] + ex[key] for key in acc}
+                viol = vl if viol is None else torch.maximum(viol, vl)
         if ran is not None:
             return state, diag, viol, acc, ex, ran, forcing
         return state, diag, viol, acc, ex
@@ -616,7 +625,9 @@ class Simulator:
         forcing), one graph replay on the card (a perturbed member's carry
         in and out, its first draw made here once), then the step counter,
         the sums into the moorings' and coupler's running means, the
-        violation flags."""
+        violation flags. The Timer node "enqueue" is host time: the
+        copy-in, the graph launch and the output copies as issued, not as
+        the device runs them."""
         pert = self._ens_pert
         self.timer.tick("forcing")
         steps = [self._step_inputs(i, wim_gate=i == 0 or not chunked, chunked=chunked, perturbed=False)
@@ -625,7 +636,7 @@ class Simulator:
         nests = [n for _, n, _ in steps]
         flags = self.time_flags([ti for _, _, ti in steps])
         self.timer.tock("forcing")
-        self.timer.tick("device_step")
+        self.timer.tick("enqueue")
         args = (self.state, forcings, flags, None if all(n is None for n in nests) else nests, self._wim_diag())
         if pert is None:
             self.state, self.diag, viol, acc, last = self._program(*args)
@@ -644,7 +655,7 @@ class Simulator:
         if self.check_fast:
             prev = self._pending_viol
             self._pending_viol = viol if prev is None else torch.maximum(prev, viol)
-        self.timer.tock("device_step")
+        self.timer.tock("enqueue")
 
     def _wim_forcing(self, forcing, wim_gate: bool):
         """The WIM exchange when ``wim_gate`` is set and one is due, then its
@@ -853,9 +864,9 @@ class Simulator:
         for i in range(k):
             self._advance(wim_gate=i == 0, chunked=True)
             if self.moorings is not None:
-                self.timer.tick("device_step")
+                self.timer.tick("enqueue")
                 self.moorings.update_means(self.state, self.diag, self.last_forcing)
-                self.timer.tock("device_step")
+                self.timer.tock("enqueue")
         self._after_steps(max(self.cfg["tpu.check_interval"], k))
 
     def _after_steps(self, interval: int, moorings_means: bool = False) -> None:
@@ -1148,7 +1159,9 @@ class Simulator:
         if profile_dir:
             # torch.profiler trace of the whole main loop (host + device
             # timelines), the analog of the reference's gperftools hook
-            # (run.sh:64-78); written as a Chrome trace
+            # (run.sh:64-78); written as a Chrome trace, beside it each
+            # captured graph's phase table (phases.json), which names the
+            # phase of each of a replay's kernels in order
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -1178,6 +1191,9 @@ class Simulator:
                 profiler.__exit__(None, None, None)
                 os.makedirs(profile_dir, exist_ok=True)
                 profiler.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+                with open(os.path.join(profile_dir, "phases.json"), "w") as f:
+                    json.dump([{"program": self._program.name, "nodes": g.stats["nodes"],
+                                "phases": g.stats["phases"]} for g in self._program.graphs.values()], f)
         self.finalise()
         return self.state
 

@@ -33,6 +33,7 @@ from nextsim_tpu_torch.core import constants as phys
 from nextsim_tpu_torch.core import ties
 from nextsim_tpu_torch.ops import momentum_cuda, rheology, stencil
 from nextsim_tpu_torch.ops.rheology import BBMParams, EVPParams, rdiv
+from nextsim_tpu_torch.utils.timer import phase
 
 
 @dataclasses.dataclass(frozen=True)
@@ -356,100 +357,104 @@ def explicit_solve(state, forcing, grid_arrays, dt: float, p: DynParams, exchang
     device mesh, else None."""
     node_mask = grid_arrays["node_mask"]
     node_dirichlet = grid_arrays["node_dirichlet"]
-    consts, carry = substep_setup(state, forcing, grid_arrays, dt, p)
+    with phase("momentum.setup"):
+        consts, carry = substep_setup(state, forcing, grid_arrays, dt, p)
     loop = momentum_cuda.substep_loop if exchanger is None else exchanger.substep_loop
     carry = loop(
         consts, carry, p.substeps, dt / p.substeps, dt, grid_arrays["delta_x"],
         p.dynamics_type, p,
     )
-    vt_u, vt_v, ut_u, ut_v, sxx, syy, sxy, damage = carry
-    sigma = torch.stack([sxx, syy, sxy])
+    # the substep loop's phases are momentum_cuda.substep_loop's
+    with phase("momentum.smoother"):
+        vt_u, vt_v, ut_u, ut_v, sxx, syy, sxy, damage = carry
+        sigma = torch.stack([sxx, syy, sxy])
 
-    if p.dynamics_type == "mevp":
-        ut_u = ut_u + dt * vt_u
-        ut_v = ut_v + dt * vt_v
+        if p.dynamics_type == "mevp":
+            ut_u = ut_u + dt * vt_u
+            ut_v = ut_v + dt * vt_v
 
-    # ---- open-water velocity smoother (reference: fe.cpp:10576-10611) ----
-    # u,v are zero on masked nodes, so the neighbour mean needs only the
-    # loop-invariant weight denominator
-    vtm_u, vtm_v = consts.vtm_u, consts.vtm_v
-    ow = (node_mask > 0.5) & (node_dirichlet < 0.5) & torch.logical_not(consts.has_mass)
-    mp = stencil.pad1(node_mask)
-    nbr_rden = rdiv(1.0, ties.maximum(
-        mp[..., :-2, 1:-1] + mp[..., 2:, 1:-1] + mp[..., 1:-1, :-2] + mp[..., 1:-1, 2:], 1.0
-    ))
-    for sweep in range(p.nit_ow):
-        if exchanger is not None and sweep % exchanger.halo_depth == 0:
-            vt_u, vt_v = exchanger.ring((vt_u, vt_v))
-        up = stencil.pad1(vt_u)
-        vp = stencil.pad1(vt_v)
-        u_bar = (up[..., :-2, 1:-1] + up[..., 2:, 1:-1] + up[..., 1:-1, :-2] + up[..., 1:-1, 2:]) * nbr_rden
-        v_bar = (vp[..., :-2, 1:-1] + vp[..., 2:, 1:-1] + vp[..., 1:-1, :-2] + vp[..., 1:-1, 2:]) * nbr_rden
-        vt_u = torch.where(ow, u_bar, vt_u)
-        vt_v = torch.where(ow, v_bar, vt_v)
+        # ---- open-water velocity smoother (reference: fe.cpp:10576-10611) ----
+        # u,v are zero on masked nodes, so the neighbour mean needs only the
+        # loop-invariant weight denominator
+        vtm_u, vtm_v = consts.vtm_u, consts.vtm_v
+        ow = (node_mask > 0.5) & (node_dirichlet < 0.5) & torch.logical_not(consts.has_mass)
+        mp = stencil.pad1(node_mask)
+        nbr_rden = rdiv(1.0, ties.maximum(
+            mp[..., :-2, 1:-1] + mp[..., 2:, 1:-1] + mp[..., 1:-1, :-2] + mp[..., 1:-1, 2:], 1.0
+        ))
+        for sweep in range(p.nit_ow):
+            if exchanger is not None and sweep % exchanger.halo_depth == 0:
+                vt_u, vt_v = exchanger.ring((vt_u, vt_v))
+            up = stencil.pad1(vt_u)
+            vp = stencil.pad1(vt_v)
+            u_bar = (up[..., :-2, 1:-1] + up[..., 2:, 1:-1] + up[..., 1:-1, :-2] + up[..., 1:-1, 2:]) * nbr_rden
+            v_bar = (vp[..., :-2, 1:-1] + vp[..., 2:, 1:-1] + vp[..., 1:-1, :-2] + vp[..., 1:-1, 2:]) * nbr_rden
+            vt_u = torch.where(ow, u_bar, vt_u)
+            vt_v = torch.where(ow, v_bar, vt_v)
 
-    # ice-ocean drag diagnostic from mean speed (reference: fe.cpp:10616-10630)
-    um_u = 0.5 * (vt_u + vtm_u)
-    um_v = 0.5 * (vt_v + vtm_v)
-    dou = forcing.ocean_u - um_u
-    dov = forcing.ocean_v - um_v
-    c_prime = (
-        phys.rhow * p.quad_drag_coef_water * torch.sqrt(dou * dou + dov * dov + 1e-20)
-    )
-    tau_wx = c_prime * (um_u - forcing.ocean_u)
-    tau_wy = c_prime * (um_v - forcing.ocean_v)
+        # ice-ocean drag diagnostic from mean speed (reference: fe.cpp:10616-10630)
+        um_u = 0.5 * (vt_u + vtm_u)
+        um_v = 0.5 * (vt_v + vtm_v)
+        dou = forcing.ocean_u - um_u
+        dov = forcing.ocean_v - um_v
+        c_prime = (
+            phys.rhow * p.quad_drag_coef_water * torch.sqrt(dou * dou + dov * dov + 1e-20)
+        )
+        tau_wx = c_prime * (um_u - forcing.ocean_u)
+        tau_wy = c_prime * (um_v - forcing.ocean_v)
 
-    # open-water displacement accumulation (reference: fe.cpp:10631-10637)
-    ut_u = torch.where(ow, ut_u + dt * vt_u, ut_u)
-    ut_v = torch.where(ow, ut_v + dt * vt_v, ut_v)
+        # open-water displacement accumulation (reference: fe.cpp:10631-10637)
+        ut_u = torch.where(ow, ut_u + dt * vt_u, ut_u)
+        ut_v = torch.where(ow, ut_v + dt * vt_v, ut_v)
 
-    state = state.replace(
-        vt_u=vt_u * node_mask,
-        vt_v=vt_v * node_mask,
-        ut_u=ut_u,
-        ut_v=ut_v,
-        sigma=sigma,
-        damage=damage,
-    )
-    if exchanger is not None:
-        # transport reads these with a reach of 3 cells; the displacement
-        # waits for the exchange at the end of the step
-        vt_u, vt_v, sigma, damage = exchanger.ring((state.vt_u, state.vt_v, state.sigma,
-                                                    state.damage if p.dynamics_type == "bbm" else None))
-        state = state.replace(vt_u=vt_u, vt_v=vt_v, sigma=sigma,
-                              damage=state.damage if damage is None else damage)
-    diag = {"tau_ax": consts.tau_ax_diag, "tau_ay": consts.tau_ay_diag,
-            "tau_wx": tau_wx, "tau_wy": tau_wy}
-    return state, diag
+        state = state.replace(
+            vt_u=vt_u * node_mask,
+            vt_v=vt_v * node_mask,
+            ut_u=ut_u,
+            ut_v=ut_v,
+            sigma=sigma,
+            damage=damage,
+        )
+        if exchanger is not None:
+            # transport reads these with a reach of 3 cells; the displacement
+            # waits for the exchange at the end of the step
+            vt_u, vt_v, sigma, damage = exchanger.ring((state.vt_u, state.vt_v, state.sigma,
+                                                        state.damage if p.dynamics_type == "bbm" else None))
+            state = state.replace(vt_u=vt_u, vt_v=vt_v, sigma=sigma,
+                                  damage=state.damage if damage is None else damage)
+        diag = {"tau_ax": consts.tau_ax_diag, "tau_ay": consts.tau_ay_diag,
+                "tau_wx": tau_wx, "tau_wy": tau_wy}
+        return state, diag
 
 
 def free_drift(state, forcing, grid_arrays, dt: float, p: DynParams):
     """Free-drift velocity (reference: updateFreeDriftVelocity,
     fe.cpp:10140-10176): pointwise wind/current drag balance."""
-    node_dirichlet = grid_arrays["node_dirichlet"]
-    node_mask = grid_arrays["node_mask"]
+    with phase("momentum.smoother"):
+        node_dirichlet = grid_arrays["node_dirichlet"]
+        node_mask = grid_arrays["node_mask"]
 
-    duo = state.vt_u - forcing.ocean_u
-    dvo = state.vt_v - forcing.ocean_v
-    nvo = ties.maximum(torch.sqrt(duo * duo + dvo * dvo + 1e-20), 0.01)
-    coef_voce = (p.lin_drag_coef_water + p.quad_drag_coef_water * nvo) * phys.rhow
-    dua = state.vt_u - forcing.wind_u
-    dva = state.vt_v - forcing.wind_v
-    nva = ties.maximum(torch.sqrt(dua * dua + dva * dva + 1e-20), 0.01)
-    coef_vair = (p.lin_drag_coef_air + p.quad_drag_coef_air * nva) * phys.rhoa
+        duo = state.vt_u - forcing.ocean_u
+        dvo = state.vt_v - forcing.ocean_v
+        nvo = ties.maximum(torch.sqrt(duo * duo + dvo * dvo + 1e-20), 0.01)
+        coef_voce = (p.lin_drag_coef_water + p.quad_drag_coef_water * nvo) * phys.rhow
+        dua = state.vt_u - forcing.wind_u
+        dva = state.vt_v - forcing.wind_v
+        nva = ties.maximum(torch.sqrt(dua * dua + dva * dva + 1e-20), 0.01)
+        coef_vair = (p.lin_drag_coef_air + p.quad_drag_coef_air * nva) * phys.rhoa
 
-    new_u = (coef_vair * forcing.wind_u + coef_voce * forcing.ocean_u) / (
-        coef_vair + coef_voce
-    )
-    new_v = (coef_vair * forcing.wind_v + coef_voce * forcing.ocean_v) / (
-        coef_vair + coef_voce
-    )
-    upd = (node_dirichlet < 0.5) & (node_mask > 0.5)
-    vt_u = torch.where(upd, new_u, state.vt_u)
-    vt_v = torch.where(upd, new_v, state.vt_v)
-    return state.replace(
-        vt_u=vt_u,
-        vt_v=vt_v,
-        ut_u=torch.where(upd, state.ut_u + dt * vt_u, state.ut_u),
-        ut_v=torch.where(upd, state.ut_v + dt * vt_v, state.ut_v),
-    )
+        new_u = (coef_vair * forcing.wind_u + coef_voce * forcing.ocean_u) / (
+            coef_vair + coef_voce
+        )
+        new_v = (coef_vair * forcing.wind_v + coef_voce * forcing.ocean_v) / (
+            coef_vair + coef_voce
+        )
+        upd = (node_dirichlet < 0.5) & (node_mask > 0.5)
+        vt_u = torch.where(upd, new_u, state.vt_u)
+        vt_v = torch.where(upd, new_v, state.vt_v)
+        return state.replace(
+            vt_u=vt_u,
+            vt_v=vt_v,
+            ut_u=torch.where(upd, state.ut_u + dt * vt_u, state.ut_u),
+            ut_v=torch.where(upd, state.ut_v + dt * vt_v, state.ut_v),
+        )

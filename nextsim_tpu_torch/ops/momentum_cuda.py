@@ -77,6 +77,7 @@ from types import SimpleNamespace
 import torch
 
 from nextsim_tpu_torch.core import constants as phys
+from nextsim_tpu_torch.utils.timer import phase
 
 #: kernel launches made by ``substep_loop`` (``launches_for`` a loop)
 launches = 0
@@ -417,7 +418,8 @@ def substep_loop(consts, carry, steps: int, dte: float, dt: float, dx: float,
                          "momentum_cuda.SubstepLoop takes one member: differentiate each member's "
                          "Simulator.raw_step_fn")
     if device.type == "cpu":
-        return substep_loop_reference(consts, carry, steps, dte, dt, dx, dyn_type, p)
+        with phase("momentum.substeps"):
+            return substep_loop_reference(consts, carry, steps, dte, dt, dx, dyn_type, p)
     if device.type != "cuda":
         raise ValueError(f"substep_loop: no kernel for device {device}")
     if torch.is_grad_enabled() and any(
@@ -530,18 +532,22 @@ def _check_plan(plan: LaunchPlan, carry, steps, dyn_type):
 
 
 def _substep_loop_cuda(consts, carry, steps, dte, dt, dx, dyn_type, p, plan: LaunchPlan = None):
-    state, planes, strides = _kernel_inputs(consts, carry, dyn_type)
-    plan = _default_plan(carry, steps, dyn_type) if plan is None else plan
-    _check_plan(plan, carry, steps, dyn_type)
-    _library()
-    # the launches alternate between two sets of state planes: the first is
-    # a copy, so the caller's tensors (e.g. the state's sigma) are left as
-    # they were; a plane the rheology does not update stays in the first
-    planes.update({n: a.clone() for n, a in state.items()})
-    if not plan.launches:
-        return tuple(planes[n] for n in _STATE)
-    second = {n: torch.empty_like(planes[n]) for n in _STATE_USED[dyn_type]}
-    _launch(planes, second, plan, plan.launches, dte, dt, dx, dyn_type, p, strides)
+    # the phase "momentum.substeps" holds the launches alone: the planes'
+    # preparation is the solver's set-up
+    with phase("momentum.setup"):
+        state, planes, strides = _kernel_inputs(consts, carry, dyn_type)
+        plan = _default_plan(carry, steps, dyn_type) if plan is None else plan
+        _check_plan(plan, carry, steps, dyn_type)
+        _library()
+        # the launches alternate between two sets of state planes: the first is
+        # a copy, so the caller's tensors (e.g. the state's sigma) are left as
+        # they were; a plane the rheology does not update stays in the first
+        planes.update({n: a.clone() for n, a in state.items()})
+        if not plan.launches:
+            return tuple(planes[n] for n in _STATE)
+        second = {n: torch.empty_like(planes[n]) for n in _STATE_USED[dyn_type]}
+    with phase("momentum.substeps"):
+        _launch(planes, second, plan, plan.launches, dte, dt, dx, dyn_type, p, strides)
     result = second if len(plan.launches) % 2 else planes
     return tuple(result.get(n, planes[n]) for n in _STATE)
 

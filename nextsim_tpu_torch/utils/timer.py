@@ -8,14 +8,62 @@ parent, and an "Unaccounted for" row where children don't cover the parent.
 
 Timings around asynchronous CUDA launches are meaningless unless the device
 work is complete, so ``tock(name, block_on=x)`` first synchronizes the
-device of tensor ``x``.
+device of tensor ``x``; without it a node times the host. While a
+``torch.profiler`` runs, each tick/tock pair is also a ``record_function``
+range of the node's name, so the nodes lie on the profiler's clock beside
+the device's entries.
+
+``phase(name)`` names a part of the model step (thermodynamics, the
+momentum solver's parts, transport, ...) where the step is built. Eagerly
+it is a ``record_function`` range while a profiler runs, and nothing
+otherwise. While ``model.captured`` captures the step into a CUDA graph, it
+marks where the phase starts and ends in the graph under capture
+(``recording``), from which the capture makes the graph's phase table: a
+replay runs no Python, so no range can name its kernels. Phases do not
+nest: a phase's end returns to ``UNATTRIBUTED``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+import torch
+
+#: the phase of what runs outside every ``phase``
+UNATTRIBUTED = "unattributed"
+
+#: the marks of the graph under capture (``model.captured.PhaseMarks``),
+#: set by ``recording`` for the capture's length; None otherwise
+_MARKS = contextvars.ContextVar("phase_marks", default=None)
+
+_NOTHING = contextlib.nullcontext()
+
+
+def phase(name: str):
+    """The context of the step's phase ``name``: a mark of its boundaries in
+    the graph under capture, a ``record_function`` range while a profiler
+    runs, else nothing."""
+    marks = _MARKS.get()
+    if marks is not None:
+        return marks.phase(name)
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NOTHING
+
+
+@contextlib.contextmanager
+def recording(marks):
+    """``phase`` marks its boundaries in ``marks`` (``marks.phase(name)``)
+    inside this context."""
+    token = _MARKS.set(marks)
+    try:
+        yield marks
+    finally:
+        _MARKS.reset(token)
 
 
 @dataclass
@@ -26,6 +74,7 @@ class _Node:
     started: Optional[float] = None
     lap_time: float = 0.0
     children: Dict[str, "_Node"] = field(default_factory=dict)
+    span: Optional[object] = None  # the open record_function range, while profiled
 
 
 class Timer:
@@ -41,18 +90,22 @@ class Timer:
         if node is None:
             node = _Node(name, self._current)
             self._current.children[name] = node
+        if torch.autograd._profiler_enabled():
+            node.span = torch.profiler.record_function(name)
+            node.span.__enter__()
         node.started = time.perf_counter()
         self._current = node
 
     def tock(self, name: str, block_on=None) -> float:
         if block_on is not None and block_on.is_cuda:
-            import torch
-
             torch.cuda.synchronize(block_on.device)
         node = self._current
         if node.name != name:
             raise RuntimeError(f"Timer.tock({name!r}) does not match current timer {node.name!r}")
         assert node.started is not None
+        if node.span is not None:
+            node.span.__exit__(None, None, None)
+            node.span = None
         node.lap_time = time.perf_counter() - node.started
         node.elapsed += node.lap_time
         node.started = None

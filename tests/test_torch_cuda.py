@@ -69,6 +69,11 @@ gradient through ``WeldingRoach`` equals plain autograd and is not the
 identity; the batched ensemble step with welding equals ``step_members``
 bitwise, one welding call for all members.
 
+The step's phases in a captured graph (``Captured.stats["phases"]``): a
+3-step chunk's table lists every node in the step's phase order, its
+``momentum.substeps`` holds the loop's launches alone, the marks add no
+node, and a profiled replay aligns with the table.
+
 Reverse mode on the card (``momentum_cuda.SubstepLoop``): the gradient
 through ``substep_loop`` against straight autograd through the plain loop
 on the card, for the three rheologies in float32 and float64, and the
@@ -704,6 +709,66 @@ def test_captured_dataset_chunks_refresh_their_forcing(cuda, tmp_path, monkeypat
         winds.append(a.last_forcing.wind_u.clone())
     assert not torch.equal(winds[0], winds[1])
     assert len(a._program.graphs) == 1
+
+
+#: the phases of a bbm step with thermodynamics on, in order
+STEP_PHASES = ["thermo", "momentum.setup", "momentum.substeps", "momentum.smoother", "transport", "checks", "sums"]
+
+
+def _phase_run_order(table):
+    """The table's phases in the order they run, repeats of a phase merged."""
+    out = []
+    for phase, _kind, _n in table:
+        if phase != "unattributed" and (not out or out[-1] != phase):
+            out.append(phase)
+    return out
+
+
+def test_captured_chunk_carries_its_phase_table(cuda, monkeypatch):
+    """At 464^2 thermo on, a 3-step chunk's graph: its phase table lists
+    every node (``stats["nodes"]``) in the step's phase order, a few
+    unattributed; ``momentum.substeps`` holds the loop's launches alone; the
+    same chunk captured with the phases made no-ops (no marks recorded) has
+    as many nodes; a profiled replay aligns with the table
+    (``benchmark/phases.py``), its substep kernels where the table has them."""
+    import contextlib
+
+    from benchmark import phases, tracing
+    from nextsim_tpu_torch.utils import timer
+
+    over = _bench464(**{"thermo.use_thermo_forcing": True, "ideal_simul.init_SST_limit": 10.0,
+                        "ideal_simul.init_concentration": 0.95, "ideal_simul.init_thickness": 1.5})
+    a = Simulator(Config(overrides=over), device="cuda")
+    a.step_chunk(3)
+    stats = a._program.stats
+    table = stats["phases"]
+    assert table is not None and sum(n for _, _, n in table) == stats["nodes"]
+    assert stats["warmup_s"] > 0.0
+    # the first step has no running sums yet (moorings off: the flags' max
+    # starts at the second step)
+    assert _phase_run_order(table) == STEP_PHASES[:-1] + STEP_PHASES * 2
+    substeps = [r for r in table if r[0] == "momentum.substeps"]
+    assert {r[1] for r in substeps} == {"kernel"}
+    assert sum(r[2] for r in substeps) == 3 * _launches(a, a.dyn.substeps)
+    assert sum(n for p, _, n in table if p == "unattributed") < 0.01 * stats["nodes"]
+
+    with monkeypatch.context() as m:
+        m.setattr(timer, "recording", lambda marks: contextlib.nullcontext())
+        b = Simulator(Config(overrides=over), device="cuda")
+        b.step_chunk(3)
+    assert b._program.stats["nodes"] == stats["nodes"]
+    assert {p for p, _, _ in b._program.stats["phases"]} == {"unattributed"}
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        a.step_chunk(3)
+        torch.cuda.synchronize()
+    trace = tracing.from_profiler(prof, 1.0, 3)
+    got = phases.split(trace, [stats])
+    assert got is not None and set(STEP_PHASES) <= set(got)
+    assert got["momentum.substeps"]["kernels"] == 3 * _launches(a, a.dyn.substeps)
+    assert sum(v["kernels"] for v in got.values()) == sum(n for _, k, n in table if k == "kernel")
+    assert 0.0 < sum(v["s"] for v in got.values()) <= sum(e - s for _, s, e in trace.device)
 
 
 # ---------------------------------------------------------------------------
