@@ -29,6 +29,14 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    least time the card could take for it (its bound) and the share reached;
 7. 3 steps at 1216^2 and 5 km (1.48M cells), finite with zero violations,
    and the kernel's time for one 120-substep loop there beside its bound;
+7b. the transport kernel (csrc/transport_ridge.cu) against
+   ``transport_and_ridge_reference`` on the 464^2 state of phase 3 and the
+   1216^2 state of phase 7, each in float32, bfloat16 and float64: every
+   field and diagnostic bitwise, one call ``LAUNCHES_A_CALL`` launches; the
+   kernel's and the plain version's ms in CUDA graphs beside the byte bound.
+   Every path below counts the transport kernel's launches from zero, as
+   the substep kernel's: one call a step, one more launch a stack of
+   floe-size bins (checked at the end, with the kernel's record);
 8. the main path with thermodynamics on (the default Winton slab and young
    ice, configs/arctic_10km.cfg's ice): the same 464^2 configuration through
    ``step_chunk()`` for 30 steps, one replay of the graph captured at a
@@ -230,7 +238,7 @@ printing a line; any failure raises and ends the run with a non-zero exit:
    last profile of the run (device busy and idle share); then ``python -m nextsim_tpu_torch.bench`` as a subprocess and
    its line.
 
-The line before the last is the JSON record of the two kernels. The
+The line before the last is the JSON record of the three kernels. The
 substep kernel: its launches summed over the paths of phases 5 (the eager
 first call and the replay, ``main_graph``), 8, 11, 14 (and its captured
 chunk, ``wave_graph``), 17, 19 (the batched steps ``ensemble_batched``, the
@@ -247,8 +255,11 @@ numbers under ``captured``; phase 19's under ``ensemble_608x4``, phase
 ensemble and 25), none of them zero, and the paths that do not weld named;
 its time, bound and the plain version's time with every cell freezing in
 float32 (phase 16), every case under ``by_case``, the welding ensemble
-under ``ensemble_welding_608x4``. The last line is
-``{"ok": true, "device": {...}}``.
+under ``ensemble_welding_608x4``. The transport kernel: its launches on
+the substep kernel's paths, each one call a step (one more launch a stack
+of floe-size bins), none of them zero; its time, byte bound and the plain
+version's time at 1216^2 in float32, every case of phase 7b under
+``by_case``. The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -610,6 +621,148 @@ def cli_run_and_resume(smi):
               f"magnitude); meta {meta}; {smi}")
 
 
+# --- 7b. the transport kernel ---------------------------------------------------
+
+#: the transport kernel's launches on every path driven (``transport_path``)
+TRANSPORT_LAUNCHES = {}
+#: every path count or comparison of the transport kernel that failed; the
+#: run raises on them at its end, so one run shows them all
+TRANSPORT_FAULTS = []
+
+
+def fsd_stacks(state) -> int:
+    """The stacks of floe-size bins that transport advects in ``state``."""
+    return sum(getattr(state, n) is not None for n in ("conc_fsd", "conc_mech_fsd"))
+
+
+def transport_path(path: str, launches: int, steps: int, stacks: int = 0) -> None:
+    """Adds ``launches`` of the transport kernel to ``path``'s count; a
+    fault unless they are one call a step over ``steps`` steps
+    (``LAUNCHES_A_CALL``, and one more launch a stack of bins)."""
+    from nextsim_tpu_torch.ops import transport_cuda
+
+    TRANSPORT_LAUNCHES[path] = TRANSPORT_LAUNCHES.get(path, 0) + launches
+    want = steps * (transport_cuda.LAUNCHES_A_CALL + stacks)
+    if launches != want:
+        TRANSPORT_FAULTS.append(f"{path}: {launches} transport launches in {steps} steps with {stacks} stacks of "
+                                f"bins, expected {want}")
+
+
+def transport_ranks(path: str, recs) -> None:
+    """``transport_path`` for each rank record of a world (its
+    ``transport_launches``, ``transport_steps`` and ``stacks``)."""
+    for r in recs:
+        transport_path(path, r["transport_launches"], r["transport_steps"], r["stacks"])
+
+
+def transport_counts(sim, steps: int) -> dict:
+    """A rank record's transport fields: the launches counted since the
+    rank set them to zero, over ``steps`` steps of ``sim``."""
+    from nextsim_tpu_torch.ops import transport_cuda
+
+    state = sim.states if hasattr(sim, "states") else sim.state
+    return {"transport_launches": transport_cuda.launches, "transport_steps": steps, "stacks": fsd_stacks(state)}
+
+
+def graph_ms(fn, calls: int, reps: int = 3) -> float:
+    """ms of one call of ``fn`` by CUDA events over ``reps`` replays of a
+    CUDA graph of ``calls`` calls: the device's time, no host time between
+    calls (after a warm call outside the graph)."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sync()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    sync()
+    ms = start.elapsed_time(end) / (reps * calls)
+    del graph
+    return ms
+
+
+def transport_bound_ms(state, young: bool) -> float:
+    """The least time of a call on the card: every plane the kernel must
+    touch read or written once over the device's bandwidth (the tracer
+    planes read and written, vt_u, vt_v, mask and open_mask read, the two
+    diagnostics written)."""
+    from nextsim_tpu_torch.ops import transport_cuda
+
+    cells, nodes = state.conc.numel(), state.vt_u.numel()
+    grid = state.conc.shape[-2] * state.conc.shape[-1]
+    tracers = len(transport_cuda._PLANES) - (0 if young else len(transport_cuda._YOUNG))
+    n_bytes = state.conc.element_size() * (2 * tracers * cells + 2 * nodes + 2 * grid + 2 * cells)
+    return 1e3 * n_bytes / H100_BYTES_PER_S
+
+
+def transport_kernel_phase(cases, smi) -> dict:
+    """Phase 7b: the transport kernel against the plain version on each
+    (label, Simulator) of ``cases``, its state and grid cast to float32,
+    bfloat16 and float64: the kernel's call (``transport.transport_and_ridge``
+    on card tensors) must equal ``transport_and_ridge_reference`` bitwise on
+    every field and diagnostic, NaN in the same places, in
+    ``LAUNCHES_A_CALL`` launches, and move the state; the kernel's ms in a
+    CUDA graph of 20 calls, the plain version's in one of 2, and the byte
+    bound. Returns {"label dtype": record}."""
+    import dataclasses
+
+    import torch
+
+    from nextsim_tpu_torch.ops import transport, transport_cuda
+
+    recs, lines = {}, []
+    saved = transport_cuda.launches
+    for label, sim in cases:
+        p = sim.transport_params
+        for dtype_name in ("float32", "bfloat16", "float64"):
+            dtype = getattr(torch, dtype_name)
+            st = _cast_tree(sim.state, dtype)
+            ga = {k: v.to(dtype) if isinstance(v, torch.Tensor) else v for k, v in sim.grid_arrays.items()}
+            what = f"transport {label} {dtype_name}"
+            launches = transport_cuda.launches
+            got, gdiag = transport.transport_and_ridge(st, ga, sim.dt, p)
+            sync()
+            made = transport_cuda.launches - launches
+            ref, rdiag = transport.transport_and_ridge_reference(st, ga, sim.dt, p)
+            differ = [f.name for f in dataclasses.fields(got) if getattr(got, f.name) is not None
+                      and not same_bits(getattr(got, f.name), getattr(ref, f.name))]
+            differ += [k for k in rdiag if not same_bits(gdiag[k], rdiag[k])]
+            err = max(float((getattr(got, f).double() - getattr(ref, f).double()).nan_to_num(0.0, 0.0, 0.0)
+                            .abs().max()) for f in transport_cuda.FIELDS)
+            moved = [f for f in ("conc", "thick", "damage", "sigma") if not torch.equal(getattr(got, f), getattr(st, f))]
+            if differ or made != transport_cuda.LAUNCHES_A_CALL or not moved:
+                TRANSPORT_FAULTS.append(f"{what}: {made} launches; differs from the plain version in {differ} "
+                                        f"(max |diff| {err:.3e}); changed {moved}")
+            ms = graph_ms(lambda: transport.transport_and_ridge(st, ga, sim.dt, p), calls=20)
+            plain_ms = graph_ms(lambda: transport.transport_and_ridge_reference(st, ga, sim.dt, p), calls=2, reps=2)
+            bound_ms = transport_bound_ms(st, p.use_young_ice)
+            recs[f"{label} {dtype_name}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "launches": made,
+                                             "bitwise": not differ, "max_abs_err": err}
+            lines.append(f"{label} {dtype_name}: {'bitwise' if not differ else f'NOT bitwise ({differ})'}, {made} "
+                         f"launch(es), kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+                         f"({100 * bound_ms / ms:.1f}% of it)")
+            del st, ga, got, gdiag, ref, rdiag
+            torch.cuda.empty_cache()
+    transport_cuda.launches = saved  # comparisons and timings are no path's launches
+    ptxas = [ln.strip() for ln in transport_cuda.build_log.splitlines() if "registers" in ln or "spill" in ln]
+    phase("transport", f"the transport kernel against the plain version (every field and diagnostic, NaN in the same "
+          f"places), times of one call in CUDA graphs (kernel: 20 calls, plain: 2): {'; '.join(lines)}; ptxas: "
+          f"{' | '.join(ptxas) or 'cached'}; {smi}")
+    return recs
+
+
 # --- the dataset path (phases 11-13) ------------------------------------------
 
 STEP_DAYS_ARCTIC = 200.0 / 86400.0  # configs/arctic_10km.cfg's time step
@@ -735,7 +888,7 @@ def dataset_cli_run(data: Path, out: Path, smi: str):
     from nextsim_tpu_torch.forcing.netcdf_io import NCFile
     from nextsim_tpu_torch.model import checks
     from nextsim_tpu_torch.model.simulator import Simulator
-    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.ops import momentum_cuda, transport_cuda
     from nextsim_tpu_torch.utils import dates
     from scipy.io import netcdf_file
 
@@ -766,7 +919,7 @@ def dataset_cli_run(data: Path, out: Path, smi: str):
             self.forcing_provider = provider
 
     Simulator.run = run_and_keep
-    momentum_cuda.launches = 0
+    momentum_cuda.launches = transport_cuda.launches = 0
     t0 = time.perf_counter()
     try:
         rc = cli.main(args)
@@ -775,6 +928,7 @@ def dataset_cli_run(data: Path, out: Path, smi: str):
         Simulator.run = run
     wall = time.perf_counter() - t0
     launches = momentum_cuda.launches
+    transport_path("datasets", transport_cuda.launches, DATASET_STEPS)
     if rc != 0:
         raise AssertionError(f"dataset CLI exited {rc}")
     sim = kept["sim"]
@@ -1253,7 +1407,7 @@ def cli_keep(args):
     of every forcing call)."""
     from nextsim_tpu_torch import __main__ as cli
     from nextsim_tpu_torch.model.simulator import Simulator
-    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.ops import momentum_cuda, transport_cuda
 
     kept, exchanges, calls = {}, [], []
     run, exchange = Simulator.run, Simulator._wim_exchange
@@ -1279,7 +1433,7 @@ def cli_keep(args):
         exchanges.append((wall, ms))
 
     Simulator.run, Simulator._wim_exchange = run_and_keep, timed_exchange
-    momentum_cuda.launches = 0
+    momentum_cuda.launches = transport_cuda.launches = 0
     try:
         rc = cli.main(args)
         sync()
@@ -1313,7 +1467,7 @@ def wave_cli_run(tmp: Path, out: Path, smi: str, dataset_ms: float):
     kernel launches)."""
     import torch
 
-    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.ops import momentum_cuda, transport_cuda
     from scipy.io import netcdf_file
 
     (tmp / "waves.cfg").write_text(WAVE_CFG)
@@ -1322,6 +1476,7 @@ def wave_cli_run(tmp: Path, out: Path, smi: str, dataset_ms: float):
             "moorings.output_timestep=20", "moorings.output_time_step_units=time_steps",
             f"drifters.equally_spaced_drifters_output_time_step={20 * STEP_DAYS_ARCTIC!r}"]
     sim, launches, wall, exchanges, calls = cli_keep(args)
+    transport_path("waves", transport_cuda.launches, WAVE_STEPS, fsd_stacks(sim.state))
     # the chunk divides every cadence: gcd(20 WIM, 20 moorings, 20 drifters, 432 snapshot) = 4
     if sim.pcpt != WAVE_STEPS or sim._chunk_k != 4:
         raise AssertionError(f"wave CLI ran {sim.pcpt} steps in chunks of {sim._chunk_k}")
@@ -1777,7 +1932,7 @@ def coupled_run(tmp: Path, out: Path, smi: str):
     from nextsim_tpu_torch.coupling.exchange import Coupler
     from nextsim_tpu_torch.forcing.netcdf_io import NCFile
     from nextsim_tpu_torch.model.captured import flatten
-    from nextsim_tpu_torch.ops import momentum_cuda, welding_cuda
+    from nextsim_tpu_torch.ops import momentum_cuda, transport_cuda, welding_cuda
 
     eg_shape = write_coupler_files(tmp / "exchange_grid.nc", out / "coupler")
     over = {k: v for k, v in (a.split("=", 1) for a in DATASET_ARGS)}
@@ -1807,14 +1962,15 @@ def coupled_run(tmp: Path, out: Path, smi: str):
     def checked_program(*args):
         graphs = len(program.graphs)
         got = program(*args)
-        counts = (momentum_cuda.launches, welding_cuda.launches)  # the eager run is the check's, not the path's
+        # the eager run is the check's, not the path's
+        counts = (momentum_cuda.launches, welding_cuda.launches, transport_cuda.launches)
         sim._extract = extract_to_host
         try:
             with torch.no_grad():
                 want = sim._chunk_body(*args)
         finally:
             sim._extract = extract
-        momentum_cuda.launches, welding_cuda.launches = counts
+        momentum_cuda.launches, welding_cuda.launches, transport_cuda.launches = counts
         (gl, gd), (wl, wd) = flatten(got), flatten(want)
         if gd != wd or not all(same_bits(x, y) for x, y in zip(gl, wl)):
             raise AssertionError(f"coupled run: a {len(args[1])}-step program call differs from its eager body")
@@ -1828,7 +1984,7 @@ def coupled_run(tmp: Path, out: Path, smi: str):
         host["sum"], host["n"] = {}, 0
 
     sim._program, Coupler._write_put = checked_program, write_put_and_close
-    momentum_cuda.launches = 0
+    momentum_cuda.launches = transport_cuda.launches = 0
     t0 = time.perf_counter()
     try:
         sim.run()
@@ -1841,6 +1997,7 @@ def coupled_run(tmp: Path, out: Path, smi: str):
         raise AssertionError(f"coupled run: no replay of a multi-step chunk ({sim.eager_reason}, {k} steps a call, "
                              f"replays {host['replays']})")
     launches = momentum_cuda.launches
+    transport_path("coupled", transport_cuda.launches, COUPLED_STEPS, fsd_stacks(sim.state))
     expect = momentum_cuda.launches_for(sim.dyn.substeps, *sim.grid.shape) * COUPLED_STEPS
     if (sim.pcpt != COUPLED_STEPS or launches != expect
             or welding_cuda.launches != COUPLED_STEPS * welding_cuda.LAUNCHES_A_CALL):
@@ -1925,7 +2082,7 @@ def wave_phases(tmp: Path, smi: str, dataset_ms: float, path_launches: dict, wel
     error on the wave state, the welding record, the captured wave record,
     the wave state as host arrays)."""
     from nextsim_tpu_torch import state_to_numpy
-    from nextsim_tpu_torch.ops import momentum_cuda, welding_cuda
+    from nextsim_tpu_torch.ops import momentum_cuda, transport_cuda, welding_cuda
 
     welding_cuda.launches = 0
     sim, path_launches["waves"] = wave_cli_run(tmp, tmp / "wave_run", smi, dataset_ms)
@@ -1936,9 +2093,12 @@ def wave_phases(tmp: Path, smi: str, dataset_ms: float, path_launches: dict, wel
     waves_vs_cpu(sim, smi)
     wave_timings(sim, smi)
     weld_rec = welding_kernel_phase(sim, smi)
-    momentum_cuda.launches = welding_cuda.launches = 0
+    momentum_cuda.launches = welding_cuda.launches = transport_cuda.launches = 0
     wave_rec = wave_captured(sim, smi)
     path_launches["wave_graph"], weld_launches["wave_graph"] = momentum_cuda.launches, welding_cuda.launches
+    # the chunks' steps: those of the substep kernel's launches
+    per_loop = momentum_cuda.launches_for(sim.dyn.substeps, *sim.grid.shape)
+    transport_path("wave_graph", transport_cuda.launches, momentum_cuda.launches // per_loop, fsd_stacks(sim.state))
     wave_state = state_to_numpy(sim.state)
     del sim
     welding_cuda.launches = 0
@@ -1991,7 +2151,7 @@ def ensemble_run(tmp: Path, smi: str, dataset_ms: float):
     from nextsim_tpu_torch import Config, state_to_numpy
     from nextsim_tpu_torch.ensemble.batched import BatchedEnsemble
     from nextsim_tpu_torch.model import checks
-    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.ops import momentum_cuda, transport_cuda
     from scipy.io import netcdf_file
 
     out = tmp / "ensemble_run"
@@ -2011,6 +2171,7 @@ def ensemble_run(tmp: Path, smi: str, dataset_ms: float):
     per_batched = momentum_cuda.launches_for(substeps, ny, nx, *plan_of, members=ENSEMBLE_MEMBERS)
     per_loop = momentum_cuda.launches_for(substeps, ny, nx, *plan_of)
     counts = {"batched": 0, "loop": 0}
+    transport = {"batched": 0, "loop": 0}
     ms = {"batched": [], "loop": []}
 
     def loop_step():
@@ -2023,12 +2184,13 @@ def ensemble_run(tmp: Path, smi: str, dataset_ms: float):
             ens.sim.moorings = moor
 
     def timed(mode):
-        momentum_cuda.launches = 0
+        momentum_cuda.launches = transport_cuda.launches = 0
         a = time.perf_counter()
         (ens.step if mode == "batched" else loop_step)()
         sync()
         ms[mode].append(1e3 * (time.perf_counter() - a))
         counts[mode] += momentum_cuda.launches
+        transport[mode] += transport_cuda.launches
 
     def both(i):
         start = _ensemble_snapshot(ens)
@@ -2050,6 +2212,9 @@ def ensemble_run(tmp: Path, smi: str, dataset_ms: float):
             early = [state_to_numpy(ens.member_state(m)) for m in range(ENSEMBLE_MEMBERS)]
         if ens.pcpt == half:
             ens.write_restart("half")
+    # one call a batched step for all members, one a member in the loop
+    transport_path("ensemble_batched", transport["batched"], ENSEMBLE_STEPS, fsd_stacks(ens.states))
+    transport_path("ensemble", transport["loop"], ENSEMBLE_MEMBERS * ENSEMBLE_STEPS, fsd_stacks(ens.states))
     if counts["batched"] != per_batched * ENSEMBLE_STEPS or \
             counts["loop"] != ENSEMBLE_MEMBERS * per_loop * ENSEMBLE_STEPS:
         raise AssertionError(f"ensemble: {counts} kernel launches, expected {per_batched} x {ENSEMBLE_STEPS} "
@@ -2185,7 +2350,7 @@ def welding_ensemble_phase(tmp: Path, smi: str, wave_state: dict, provider) -> d
     from nextsim_tpu_torch.ensemble.batched import BatchedEnsemble
     from nextsim_tpu_torch.model import simulator as sim_mod
     from nextsim_tpu_torch.ops import fsd as fsd_ops
-    from nextsim_tpu_torch.ops import momentum_cuda, welding_cuda
+    from nextsim_tpu_torch.ops import momentum_cuda, transport_cuda, welding_cuda
 
     overrides = dict(a.split("=", 1) for a in DATASET_ARGS)
     # (the ice comes from phase 14's state: no TOPAZ reader for the ice init)
@@ -2215,7 +2380,7 @@ def welding_ensemble_phase(tmp: Path, smi: str, wave_state: dict, provider) -> d
     plan_of = (ens.sim.dtype, ens.sim.dyn.dynamics_type)
     per_batched = momentum_cuda.launches_for(ens.sim.dyn.substeps, ny, nx, *plan_of, members=n)
     per_loop = momentum_cuda.launches_for(ens.sim.dyn.substeps, ny, nx, *plan_of)
-    counts = {"batched": [0, 0], "loop": [0, 0]}
+    counts = {"batched": [0, 0, 0], "loop": [0, 0, 0]}
     ms = {"batched": [], "loop": []}
     active = []
     plain_weld = fsd_ops.welding_roach
@@ -2229,7 +2394,7 @@ def welding_ensemble_phase(tmp: Path, smi: str, wave_state: dict, provider) -> d
         return plain_weld(x, dt, p, bins, freezing)
 
     def timed(mode):
-        c0 = (momentum_cuda.launches, welding_cuda.launches)
+        c0 = (momentum_cuda.launches, welding_cuda.launches, transport_cuda.launches)
         a = time.perf_counter()
         if mode == "batched":
             ens.step()
@@ -2244,6 +2409,7 @@ def welding_ensemble_phase(tmp: Path, smi: str, wave_state: dict, provider) -> d
         ms[mode].append(1e3 * (time.perf_counter() - a))
         counts[mode][0] += momentum_cuda.launches - c0[0]
         counts[mode][1] += welding_cuda.launches - c0[1]
+        counts[mode][2] += transport_cuda.launches - c0[2]
 
     for i in range(WELD_ENSEMBLE_STEPS):
         start = _ensemble_snapshot(ens)
@@ -2259,9 +2425,13 @@ def welding_ensemble_phase(tmp: Path, smi: str, wave_state: dict, provider) -> d
                                  f"{differ or 'the AR(1) carry'}")
     steps = WELD_ENSEMBLE_STEPS
     per_call = welding_cuda.LAUNCHES_A_CALL
+    transport_path("ensemble_welding", counts["batched"][2], steps, fsd_stacks(ens.states))
+    transport = {mode: counts[mode].pop() for mode in counts}
     if counts["batched"] != [per_batched * steps, steps * per_call] or counts["loop"] != [
             n * per_loop * steps, n * steps * per_call]:
         raise AssertionError(f"welding ensemble: launches (substep, welding) {counts}")
+    if transport["loop"] != n * steps * (transport_cuda.LAUNCHES_A_CALL + fsd_stacks(ens.states)):
+        TRANSPORT_FAULTS.append(f"welding ensemble: {transport['loop']} transport launches in the member loop")
     if sum(active) == 0:
         raise AssertionError("welding ensemble: welding acted on no cell")
     for k in range(n):
@@ -2496,7 +2666,7 @@ def perturbed_member(cfg, smi: str) -> dict:
     import torch
 
     from nextsim_tpu_torch import Simulator
-    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.ops import momentum_cuda, transport_cuda
 
     sim = Simulator(cfg, device="cuda")
     if sim.eager_reason is not None:
@@ -2522,13 +2692,16 @@ def perturbed_member(cfg, smi: str) -> dict:
     ms = {"captured": [], "eager": []}
     outs = []
     launches = {"captured": 0, "eager": 0}
+    transport = {"captured": 0, "eager": 0}
     for i in range(PERTURBED_TURNS):
         for mode in (("captured", "eager") if i % 2 == 0 else ("eager", "captured")):
-            momentum_cuda.launches = 0
+            momentum_cuda.launches = transport_cuda.launches = 0
             t, out = run(mode)
             launches[mode] += momentum_cuda.launches
+            transport[mode] += transport_cuda.launches
             ms[mode].append(t)
             outs.append((mode, out))
+    transport_path("perturbed", transport["captured"], PERTURBED_TURNS * k, fsd_stacks(sim.state))
     ref = outs[0][1]
     for n, (mode, (state, ran, g, lf)) in enumerate(outs):
         differ = [f for f in ref[0].__dataclass_fields__ if getattr(ref[0], f) is not None
@@ -2672,7 +2845,7 @@ def validation_run(tmp: Path, smi: str, ens) -> int:
 
     from nextsim_tpu_torch import Config
     from nextsim_tpu_torch.grid.grid import Grid
-    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.ops import momentum_cuda, transport_cuda
     from nextsim_tpu_torch.tools import deformation_stats
     from nextsim_tpu_torch.utils import dates
     from nextsim_tpu_torch.validation.ref_compare import build_matching_grid, load_snapshot, run_comparison
@@ -2684,12 +2857,13 @@ def validation_run(tmp: Path, smi: str, ens) -> int:
     write_reference_snapshots(ref_dir, grid, dates.string_to_datenum(cfg["simul.time_init"]),
                               cfg["simul.timestep"] / 86400.0)
     ov = {"tpu.dtype": "float64", "output.exporter_path": str(tmp / "validation")}
-    momentum_cuda.launches = 0
+    momentum_cuda.launches = transport_cuda.launches = 0
     t0 = time.perf_counter()
     card = run_comparison(str(ref_dir), [toy], overrides=dict(ov), verbose=False, device="cuda")
     sync()
     t_card = time.perf_counter() - t0
     launches = momentum_cuda.launches
+    transport_path("validation", transport_cuda.launches, 3)
     t0 = time.perf_counter()
     cpu = run_comparison(str(ref_dir), [toy], overrides=dict(ov), verbose=False, device="cpu")
     t_cpu = time.perf_counter() - t0
@@ -2785,24 +2959,27 @@ def measure_gradient(grad, warm=True, profile=False):
     """(gradient, ms of a synchronized call (after a warm one with
     ``warm``), kernel launches of that call, peak device memory above what
     was allocated before it in GiB, and with ``profile`` (device busy ms,
-    launches of every kernel) of one more call under torch.profiler)."""
+    launches of every kernel) of one more call under torch.profiler). The
+    transport kernel's launches of the timed call are left in
+    ``transport_cuda.launches``."""
     import torch
 
-    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.ops import momentum_cuda, transport_cuda
 
     if warm:
         grad()
     sync()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    momentum_cuda.launches = 0
+    momentum_cuda.launches = transport_cuda.launches = 0
     t0 = time.perf_counter()
     g = grad()
     sync()
     ms = 1e3 * (time.perf_counter() - t0)
-    launches = momentum_cuda.launches
+    launches, transported = momentum_cuda.launches, transport_cuda.launches
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     prof = profiled(grad, host_events=False)[1:] if profile else None
+    transport_cuda.launches = transported
     if not bool(torch.isfinite(g).all()) or float(g.abs().max()) <= 0.0:
         raise AssertionError("gradient: not finite, or zero")
     return g, ms, launches, peak, prof
@@ -2831,7 +3008,7 @@ def gradient_phase(smi: str) -> int:
     host arrays, for phase 27)."""
     import torch
 
-    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.ops import momentum_cuda, transport_cuda
 
     t_phase = time.perf_counter()
     launches = 0
@@ -2844,6 +3021,7 @@ def gradient_phase(smi: str) -> int:
         t_init = time.perf_counter() - t0
         grad, _, _ = ke_gradient(sim)
         g, ms, n, peak, prof = measure_gradient(grad, profile=True)
+        transport_path("gradient", transport_cuda.launches, 1)
         if n != per_loop:
             raise AssertionError(f"gradient {name}: {n} kernel launches, expected {per_loop}")
         launches += n
@@ -2865,6 +3043,7 @@ def gradient_phase(smi: str) -> int:
             t0 = time.perf_counter()
             grad, _, _ = ke_gradient(sim, steps=GRAD_ROLLOUT)
             g, ms, n, peak, _ = measure_gradient(grad, warm=False)
+            transport_path("gradient", transport_cuda.launches, GRAD_ROLLOUT)
             if n != GRAD_ROLLOUT * per_loop:
                 raise AssertionError(f"gradient rollout: {n} kernel launches, expected {GRAD_ROLLOUT * per_loop}")
             launches += n
@@ -2877,6 +3056,7 @@ def gradient_phase(smi: str) -> int:
     sim.step()
     grad, loss, wind = ke_gradient(sim)
     g, ms, n, peak, _ = measure_gradient(grad)
+    transport_path("gradient", transport_cuda.launches, 1)
     single["float64"] = g.cpu().numpy()
     per_loop64 = momentum_cuda.launches_for(120, 464, 464, torch.float64)
     if n != per_loop64:
@@ -2933,7 +3113,7 @@ def mesh_rank(cases, out_dir):
     import torch.distributed as dist
 
     from nextsim_tpu_torch import Config, Simulator
-    from nextsim_tpu_torch.ops import momentum, momentum_cuda
+    from nextsim_tpu_torch.ops import momentum, momentum_cuda, transport_cuda
     from nextsim_tpu_torch.parallel.distributed import local_device
 
     rank = dist.get_rank()
@@ -2946,7 +3126,7 @@ def mesh_rank(cases, out_dir):
         torch.cuda.synchronize(device)
         dist.barrier()
         mesh = sim.mesh
-        momentum_cuda.launches = 0
+        momentum_cuda.launches = transport_cuda.launches = 0
         mesh.exchanges, mesh.seconds, mesh.stats.messages, mesh.stats.bytes = 0, 0.0, 0, 0
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -2956,7 +3136,8 @@ def mesh_rank(cases, out_dir):
         rec = {"name": name, "rank": rank, "device": str(device), "backend": dist.get_backend(),
                "block": list(sim.state.conc.shape), "launches": momentum_cuda.launches,
                "steps": steps, "wall": wall, "exchanges": mesh.exchanges,
-               "exchange_s": mesh.seconds, "bytes": mesh.stats.bytes, "messages": mesh.stats.messages}
+               "exchange_s": mesh.seconds, "bytes": mesh.stats.bytes, "messages": mesh.stats.messages,
+               **transport_counts(sim, steps)}
         host = sim.host_state()
         if rank == 0:
             arrays = {f: getattr(host, f) for f in host.__dataclass_fields__ if getattr(host, f) is not None}
@@ -3092,6 +3273,7 @@ def mesh_phase(smi: str):
               f"{[round(r['exchange_s'] / r['wall'], 3) for r in rs]}, {rs[0]['exchanges'] // rs[0]['steps']} "
               f"exchanges a step, bytes sent a step by rank {[r['bytes'] // r['steps'] for r in rs]}, "
               f"kernel launches by rank {[r['launches'] for r in rs]}; {smi}")
+    transport_ranks("mesh", records)
     kernel_err = max(r.get("kernel_err", 0.0) for r in records)
     if kernel_err != 0.0:
         raise AssertionError(f"mesh: the kernel on rank 0's ext block is {kernel_err} off the plain loop")
@@ -3141,7 +3323,7 @@ def mesh_waves_rank(tmp, out_dir):
     import torch.distributed as dist
 
     from nextsim_tpu_torch import Simulator
-    from nextsim_tpu_torch.ops import momentum, momentum_cuda, welding_cuda
+    from nextsim_tpu_torch.ops import momentum, momentum_cuda, transport_cuda, welding_cuda
     from nextsim_tpu_torch.parallel.distributed import local_device
 
     rank = dist.get_rank()
@@ -3162,7 +3344,7 @@ def mesh_waves_rank(tmp, out_dir):
 
     sim._wim_exchange = timed_exchange
     dist.barrier()
-    momentum_cuda.launches = welding_cuda.launches = 0
+    momentum_cuda.launches = welding_cuda.launches = transport_cuda.launches = 0
     step_ms, snap = [], None
     for k in range(MESH_WAVE_STEPS):
         if k == MESH_WAVE_STEPS - 1:  # the step-20 state and the next step's forcing, for the check
@@ -3178,7 +3360,8 @@ def mesh_waves_rank(tmp, out_dir):
            "welding_launches": welding_cuda.launches,
            "wim_block": list(sim.wim.sdf.shape), "init_s": init_s, "launches": launches, "step_ms": step_ms,
            "exchanges": exchanges, "seam_s": sim.mesh.seconds, "seam_bytes": sim.mesh.stats.bytes,
-           "wim_ring_s": sim.wim.mesh.seconds, "wim_ring_bytes": sim.wim.mesh.stats.bytes}
+           "wim_ring_s": sim.wim.mesh.seconds, "wim_ring_bytes": sim.wim.mesh.stats.bytes,
+           **transport_counts(sim, MESH_WAVE_STEPS)}
     host = sim.host_state()
     wim = sim.wim.gather({"dfloe": sim.wim.ice["dfloe"], "broken": sim.wim.ice["broken"],
                           "tau_x": sim.wim_diag["tau_x"], "tau_y": sim.wim_diag["tau_y"]})
@@ -3246,6 +3429,7 @@ def mesh_waves_phase(tmp: Path, smi: str):
     if any(r["welding_launches"] != MESH_WAVE_STEPS * LAUNCHES_A_CALL for r in recs):
         raise AssertionError(f"mesh waves: welding launches by rank {[r['welding_launches'] for r in recs]}, "
                              f"not one call ({LAUNCHES_A_CALL} launches) a step")
+    transport_ranks("mesh_waves", recs)
     kernel_err = recs[0]["kernel_err"]
     if kernel_err != 0.0:
         raise AssertionError(f"mesh waves: the kernel on rank 0's ext block is {kernel_err} off the plain loop")
@@ -3280,7 +3464,7 @@ def mesh_ensemble_rank(cfg_path, overrides, cases, out_dir):
 
     from nextsim_tpu_torch import Config
     from nextsim_tpu_torch.ensemble.batched import BatchedEnsemble
-    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.ops import momentum_cuda, transport_cuda
     from nextsim_tpu_torch.parallel.distributed import local_device
 
     rank = dist.get_rank()
@@ -3300,7 +3484,7 @@ def mesh_ensemble_rank(cfg_path, overrides, cases, out_dir):
                               mesh=tuple(mesh))
         init_s = time.perf_counter() - t0
         dist.barrier()
-        momentum_cuda.launches = 0
+        momentum_cuda.launches = transport_cuda.launches = 0
         step_ms = []
         for k in range(steps + bool(checkpoint)):
             if k == steps:  # the checkpoint, then one more step
@@ -3321,7 +3505,7 @@ def mesh_ensemble_rank(cfg_path, overrides, cases, out_dir):
                                                       members=len(ens.members))
         recs.append({"name": name, "rank": rank, "members": ens.members, "init_s": init_s, "step_ms": step_ms,
                      "launches": launches, "block": list(block), "per_step": per_step,
-                     "steps": steps + bool(checkpoint)})
+                     "steps": steps + bool(checkpoint), **transport_counts(ens, steps + bool(checkpoint))})
         del ens
         torch.cuda.empty_cache()
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(recs))
@@ -3380,6 +3564,8 @@ def mesh_ensemble_phase(tmp: Path, smi: str, ens, early):
     if n_one != per_step:
         raise AssertionError(f"mesh ensemble: the single device's batched step launched {n_one}, not {per_step}")
 
+    transport_ranks("mesh_ensemble", recs)
+
     def of(name):
         return [r for r in recs if r["name"] == name]
 
@@ -3412,7 +3598,7 @@ def mesh_gradient_rank(out_dir):
     import torch.distributed as dist
 
     from nextsim_tpu_torch import Config, Simulator
-    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.ops import momentum_cuda, transport_cuda
     from nextsim_tpu_torch.parallel.distributed import local_device
 
     rank = dist.get_rank()
@@ -3438,20 +3624,22 @@ def mesh_gradient_rank(out_dir):
         dist.barrier()
         torch.cuda.reset_peak_memory_stats(device)
         base = torch.cuda.memory_allocated(device)
-        momentum_cuda.launches = 0
+        momentum_cuda.launches = transport_cuda.launches = 0
         rings0 = sim.mesh.exchanges
         t0 = time.perf_counter()
         g = grad()
         torch.cuda.synchronize(device)
         ms = 1e3 * (time.perf_counter() - t0)
         launches = momentum_cuda.launches
+        transported = transport_counts(sim, 1)  # one step's forward
         peak = (torch.cuda.max_memory_allocated(device) - base) / 2**30
         rings = sim.mesh.exchanges - rings0
         # one more call of the float32 gradient under the profiler: every
         # kernel on the card (float64's: not profiled, to save its digest)
         _, busy, kernels = profiled(grad, host_events=False) if dtype_name == "float32" else (None, None, None)
         recs.append({"dtype": dtype_name, "rank": rank, "ms": ms, "launches": launches, "peak_gib": peak,
-                     "rings": rings, "kernels": kernels, "busy_ms": busy, "block": list(sim.state.conc.shape)})
+                     "rings": rings, "kernels": kernels, "busy_ms": busy, "block": list(sim.state.conc.shape),
+                     **transported})
         grads[dtype_name] = g.cpu().numpy()
         if not np.isfinite(grads[dtype_name]).all():
             raise AssertionError(f"mesh gradient {dtype_name}: not finite")
@@ -3483,6 +3671,7 @@ def mesh_gradient_phase(tmp: Path, smi: str, single: dict):
             if not rel <= MESH_GRAD_REL_L2[dtype_name]:
                 raise AssertionError(f"mesh gradient {dtype_name}: {rel:.3e} (relative L2) from phase 23's")
             rs = [r for r in recs if r["dtype"] == dtype_name]
+            transport_ranks("mesh_gradient", rs)
             if any(r["launches"] <= 0 for r in rs):
                 raise AssertionError(f"mesh gradient {dtype_name}: a rank ran without the kernel")
             profile = (f", kernels by rank {[r['kernels'] for r in rs]} (device busy "
@@ -3578,7 +3767,7 @@ def bf16_phase(smi: str, host_state: dict, spun: dict) -> tuple:
 
     from nextsim_tpu_torch import state_from_numpy
     from nextsim_tpu_torch.model import checks
-    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.ops import momentum_cuda, transport_cuda
 
     t_phase = time.perf_counter()
     bf16 = torch.bfloat16
@@ -3655,12 +3844,14 @@ def bf16_phase(smi: str, host_state: dict, spun: dict) -> tuple:
         s_ = make_sim(BENCH_THERMO, name)
         s_.step()  # warm-up step outside the count and the timing
         sync()
-        momentum_cuda.launches = 0
+        momentum_cuda.launches = transport_cuda.launches = 0
         t0 = time.perf_counter()
         s_.step_chunk(BF16_STEPS)
         sync()
-        runs[name] = (s_, 1e3 * (time.perf_counter() - t0) / BF16_STEPS, momentum_cuda.launches)
-    sim, ms_step, launches = runs["bfloat16"]
+        runs[name] = (s_, 1e3 * (time.perf_counter() - t0) / BF16_STEPS, momentum_cuda.launches,
+                      transport_cuda.launches)
+    sim, ms_step, launches, transported = runs["bfloat16"]
+    transport_path("bf16", transported, BF16_STEPS)
     per_loop = momentum_cuda.launches_for(120, 464, 464, bf16)
     if launches != per_loop * BF16_STEPS:
         raise AssertionError(f"bf16 thermo on: {launches} kernel launches, expected {per_loop * BF16_STEPS}")
@@ -3848,7 +4039,7 @@ def main() -> int:
         return 2
     from nextsim_tpu_torch import state_from_numpy, state_to_numpy
     from nextsim_tpu_torch.model import checks
-    from nextsim_tpu_torch.ops import momentum_cuda
+    from nextsim_tpu_torch.ops import momentum_cuda, transport_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3923,20 +4114,22 @@ def main() -> int:
     # 5. main path: the 30-step program, run eagerly and captured at its
     # first call ("main"), one graph replay at the second ("main_graph")
     sim = make_sim(BENCH)
-    momentum_cuda.launches = 0
+    momentum_cuda.launches = transport_cuda.launches = 0
     t0 = time.perf_counter()
     sim.step_chunk()
     sync()
     first_s = time.perf_counter() - t0
     path_launches = {"main": momentum_cuda.launches}  # the kernel's launches on every path driven
     weld_launches = {}  # the welding kernel's, on the paths that weld
-    momentum_cuda.launches = 0
+    k = sim.cfg["tpu.steps_per_call"]
+    transport_path("main", transport_cuda.launches, k)
+    momentum_cuda.launches = transport_cuda.launches = 0
     t0 = time.perf_counter()
     sim.step_chunk()
     sync()
     wall = time.perf_counter() - t0
     launches = path_launches["main_graph"] = momentum_cuda.launches
-    k = sim.cfg["tpu.steps_per_call"]
+    transport_path("main_graph", transport_cuda.launches, k)
     substeps = sim.dyn.substeps
     for f in ("conc", "thick", "damage", "sigma", "vt_u", "vt_v", "ut_u", "ut_v"):
         if not bool(torch.isfinite(getattr(sim.state, f)).all()):
@@ -3992,17 +4185,23 @@ def main() -> int:
           f"{bytes_ms:.4f} ms, operations {ops_ms:.4f} ms): the kernel reaches {100 * bound_ms_1216 / ms_1216:.1f}% "
           f"of it; {smi}")
 
+    # 7b. the transport kernel against its plain version on the states of
+    # phases 3 and 7
+    transport_rec = transport_kernel_phase((("464^2", sim_spin), ("1216^2", sim)), smi)
+    del sim_spin
+
     # 8. the thermo-on main path: one replay of the 30-step graph, captured
     # at the first call
     sim = make_sim(BENCH_THERMO)
     sim.step_chunk()
     sync()
-    momentum_cuda.launches = 0
+    momentum_cuda.launches = transport_cuda.launches = 0
     t0 = time.perf_counter()
     sim.step_chunk()
     sync()
     wall = time.perf_counter() - t0
     launches = momentum_cuda.launches
+    transport_path("thermo", transport_cuda.launches, k)
     for f in ("conc", "thick", "snow_thick", "damage", "sigma", "tice", "sst", "sss",
               "conc_young", "h_young", "tsurf_young", "vt_u", "vt_v", "ut_u", "ut_v"):
         if not bool(torch.isfinite(getattr(sim.state, f)).all()):
@@ -4102,6 +4301,10 @@ def main() -> int:
         raise AssertionError(f"a path ran without the kernel: {path_launches}")
     if sorted(weld_launches) != sorted(WELDING_PATHS) or min(weld_launches.values()) <= 0:
         raise AssertionError(f"a welding path ran without the welding kernel: {weld_launches}")
+    if TRANSPORT_FAULTS:
+        raise AssertionError("the transport kernel: " + "; ".join(TRANSPORT_FAULTS))
+    if sorted(TRANSPORT_LAUNCHES) != sorted(path_launches) or min(TRANSPORT_LAUNCHES.values()) <= 0:
+        raise AssertionError(f"a path ran without the transport kernel: {TRANSPORT_LAUNCHES}")
 
     print(json.dumps({"kernels": [{
         "name": "momentum_substep",
@@ -4152,6 +4355,20 @@ def main() -> int:
         "active_cells": weld_rec["active"],
         "by_case": weld_rec["by_case"],
         "ensemble_welding_608x4": weld_ens,
+    }, {
+        "name": "transport_ridge",
+        "route": "cuda",
+        "source": "nextsim_tpu_torch/csrc/transport_ridge.cu",
+        "replaces": "nextsim_tpu/ops/transport.py, advection.py (transport_and_ridge: XLA-fused jnp, no Pallas kernel)",
+        "launches": sum(TRANSPORT_LAUNCHES.values()),
+        "launches_by_path": TRANSPORT_LAUNCHES,
+        "max_abs_err": max(r["max_abs_err"] for r in transport_rec.values()),
+        "ms": transport_rec["1216^2 float32"]["ms"],
+        "plain_ms": transport_rec["1216^2 float32"]["plain_ms"],
+        "bound_ms": transport_rec["1216^2 float32"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no PyTorch call computes this function
+        "by_case": transport_rec,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

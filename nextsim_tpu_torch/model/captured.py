@@ -39,8 +39,9 @@ Python's garbage collector is off during a capture (a graph destroyed by a
 collection frees device memory, which a capture cannot hold). The
 wrapper runs ``fn`` under ``torch.no_grad()`` on the card: a gradient goes
 through ``Simulator.raw_step_fn``, never through a graph.
-``momentum_cuda.launches`` and ``welding_cuda.launches`` count the substep
-and welding kernels' launches that a replay makes: the capture records them
+``momentum_cuda.launches``, ``welding_cuda.launches`` and
+``transport_cuda.launches`` count the substep, welding and transport
+kernels' launches that a replay makes: the capture records them
 without running them, so each count is set back after the capture and
 raised by that many at every replay.
 
@@ -73,53 +74,58 @@ from typing import Callable, Optional
 
 import torch
 
-from nextsim_tpu_torch.ops import momentum_cuda, welding_cuda
+from nextsim_tpu_torch.ops import momentum_cuda, transport_cuda, welding_cuda
 from nextsim_tpu_torch.utils import timer
 
 #: the wrappers whose ``launches`` count their kernel's launches
-_COUNTERS = (momentum_cuda, welding_cuda)
+_COUNTERS = (momentum_cuda, welding_cuda, transport_cuda)
 
 
 def flatten(tree):
     """(tensor leaves in order, a hashable description of everything else)."""
     leaves = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(x):
-        if isinstance(x, torch.Tensor):
-            leaves.append(x)
-            return ("T", tuple(x.shape), x.dtype, x.device)
-        if dataclasses.is_dataclass(x) and not isinstance(x, type):
-            names = tuple(f.name for f in dataclasses.fields(x))
-            return ("D", type(x), names, tuple(walk(getattr(x, n)) for n in names))
-        if isinstance(x, dict):
-            keys = tuple(x)
-            return ("M", keys, tuple(walk(x[k]) for k in keys))
-        if isinstance(x, (list, tuple)):
-            return ("L" if isinstance(x, list) else "U", tuple(walk(v) for v in x))
-        return ("C", x)
 
-    return leaves, walk(tree)
+def _walk(x, leaves):
+    """``flatten``'s description of ``x``, its tensors appended to
+    ``leaves``. A function of the module, not a closure in ``flatten``: a
+    recursive closure is a reference cycle, which would keep ``leaves`` (a
+    call's inputs) on the device until the garbage collector ran."""
+    if isinstance(x, torch.Tensor):
+        leaves.append(x)
+        return ("T", tuple(x.shape), x.dtype, x.device)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        names = tuple(f.name for f in dataclasses.fields(x))
+        return ("D", type(x), names, tuple(_walk(getattr(x, n), leaves) for n in names))
+    if isinstance(x, dict):
+        keys = tuple(x)
+        return ("M", keys, tuple(_walk(x[k], leaves) for k in keys))
+    if isinstance(x, (list, tuple)):
+        return ("L" if isinstance(x, list) else "U", tuple(_walk(v, leaves) for v in x))
+    return ("C", x)
 
 
 def unflatten(treedef, leaves):
     """The tree ``flatten`` described, with ``leaves`` in place of its tensors."""
-    it = iter(leaves)
+    return _build(treedef, iter(leaves))
 
-    def build(d):
-        tag = d[0]
-        if tag == "T":
-            return next(it)
-        if tag == "D":
-            return d[1](**{n: build(c) for n, c in zip(d[2], d[3])})
-        if tag == "M":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        if tag == "L":
-            return [build(c) for c in d[1]]
-        if tag == "U":
-            return tuple(build(c) for c in d[1])
-        return d[1]
 
-    return build(treedef)
+def _build(d, it):
+    """``unflatten``'s tree of ``d``, its tensors taken from ``it`` (no
+    closure, as ``_walk``)."""
+    tag = d[0]
+    if tag == "T":
+        return next(it)
+    if tag == "D":
+        return d[1](**{n: _build(c, it) for n, c in zip(d[2], d[3])})
+    if tag == "M":
+        return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    if tag == "L":
+        return [_build(c, it) for c in d[1]]
+    if tag == "U":
+        return tuple(_build(c, it) for c in d[1])
+    return d[1]
 
 
 def _copies(treedef, leaves):
@@ -363,6 +369,7 @@ class _Graph:
             "pool_bytes": torch.cuda.memory_reserved() - reserved,
             "kernel_launches": self.launches[0],
             "welding_launches": self.launches[1],
+            "transport_launches": self.launches[2],
             "generators": len(generators),
             "phases": phases,
         }

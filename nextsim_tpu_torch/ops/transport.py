@@ -13,6 +13,12 @@ model/finiteelement.cpp:3919-4131):
 3. mechanical redistribution: young-ice ridging transfer (aspect ratio 10)
    and concentration capping, per update() (fe.cpp:4032-4115);
 4. SST/SSS diffusion (reference: diffuse, fe.cpp:2760-2815) when enabled.
+
+``transport_and_ridge`` sends a state on the card to the CUDA kernel
+(ops/transport_cuda.py, csrc/transport_ridge.cu: one launch a call, one more
+a stack of floe-size bins), or raises: nothing falls back to the plain
+version there. A state on the CPU takes the plain version,
+``transport_and_ridge_reference``, which is also the kernel's oracle.
 """
 
 from __future__ import annotations
@@ -60,6 +66,48 @@ class TransportParams:
 
 
 def transport_and_ridge(state, grid_arrays, dt: float, p: TransportParams):
+    """Transport and ridging of ``state`` over ``dt``: (state, diag). On
+    any device but the CPU the kernel (``transport_cuda``), else the plain
+    version."""
+    if not _kernel_for(state.conc):
+        return transport_and_ridge_reference(state, grid_arrays, dt, p)
+    from nextsim_tpu_torch.ops import transport_cuda
+
+    return transport_cuda.transport_and_ridge(state, grid_arrays, dt, p)
+
+
+def _kernel_for(t) -> bool:
+    """Whether ``transport_and_ridge`` takes the kernel for this state: on
+    any device but the CPU."""
+    return t.device.type != "cpu"
+
+
+def scalars(p: TransportParams) -> dict:
+    """The physics scalars of a call that ``p`` gives: ``mu_si_lf_c``
+    (the enthalpy transform's constant), ``tfr_ice`` (the ice's freezing
+    point) and ``myi_with_young`` (whether the myi cap counts young ice),
+    for the plain version and the kernel alike."""
+    return {"mu_si_lf_c": p.freezingpoint_mu * phys.si * phys.Lf / phys.C,
+            "tfr_ice": -p.freezingpoint_mu * phys.si,
+            "myi_with_young": p.newice_type == 4 and p.include_young_ice}
+
+
+def _cons(q, u_face, v_face, dt: float, dx: float, mask, upd, so: bool):
+    """Conservative advection of ``q``, kept where upd > 0.5."""
+    q2 = advection.advect_conservative(q, u_face, v_face, dt, dx, mask, so)
+    return torch.where(upd > 0.5, q2, q)
+
+
+def advect_stack_reference(q, vt_u, vt_v, mask, open_mask, dt: float, dx: float, second_order: bool):
+    """The plain version of a stack's advection (``transport_cuda.advect_stack``):
+    the conservative advection of every plane of ``q`` (the floe-size bins),
+    as ``transport_and_ridge_reference`` advects them."""
+    u_face, v_face = advection.face_velocities(vt_u, vt_v)
+    return _cons(q, u_face, v_face, dt, dx, mask, mask * (1.0 - open_mask), second_order)
+
+
+def transport_and_ridge_reference(state, grid_arrays, dt: float, p: TransportParams):
+    """The plain version of ``transport_and_ridge``."""
     mask = grid_arrays["mask"]
     open_mask = grid_arrays["open_mask"]
     dx = grid_arrays["delta_x"]
@@ -71,10 +119,10 @@ def transport_and_ridge(state, grid_arrays, dt: float, p: TransportParams):
     div = advection.divergence(u_face, v_face, dx)
 
     so = p.second_order
+    k = scalars(p)
 
     def cons(q):
-        q2 = advection.advect_conservative(q, u_face, v_face, dt, dx, mask, so)
-        return torch.where(upd > 0.5, q2, q)
+        return _cons(q, u_face, v_face, dt, dx, mask, upd, so)
 
     def intens(q):
         q2 = advection.advect_intensive(q, u_face, v_face, dt, dx, mask, so)
@@ -102,7 +150,7 @@ def transport_and_ridge(state, grid_arrays, dt: float, p: TransportParams):
     # weighted tracers (transforms per collectVariables, fe.cpp:2131-2147)
     age_det_r = cons(state.age_det * old_conc)
     age_r = cons(state.age * old_thick)
-    mu_si_lf_c = p.freezingpoint_mu * phys.si * phys.Lf / phys.C
+    mu_si_lf_c = k["mu_si_lf_c"]
     t1 = state.tice[1]
     enth_density = (t1 - rdiv(mu_si_lf_c, ties.minimum(t1, -1e-12))) * old_thick
     enth_r = cons(enth_density)
@@ -111,7 +159,7 @@ def transport_and_ridge(state, grid_arrays, dt: float, p: TransportParams):
     # inverse transforms (redistributeVariables, fe.cpp:2219-2248), gated on
     # a small but non-denormal thickness as in the JAX package (dividing by
     # float32-tiny advected volumes overflows enth^2)
-    tfr_ice = -p.freezingpoint_mu * phys.si
+    tfr_ice = k["tfr_ice"]
     has_c = conc > 1e-6
     has_h = thick > 1e-6
     age_det = torch.where(has_c, age_det_r / ties.maximum(conc, 1e-6), 0.0)
@@ -215,7 +263,7 @@ def transport_and_ridge(state, grid_arrays, dt: float, p: TransportParams):
 
     # myi capping (fe.cpp:4124-4130)
     del_ci_ridge_myi = -conc_myi
-    if p.newice_type == 4 and p.include_young_ice:
+    if k["myi_with_young"]:
         conc_myi = torch.minimum(ties.maximum(conc_myi, 0.0), conc + conc_young)
     else:
         conc_myi = torch.minimum(ties.maximum(conc_myi, 0.0), conc)

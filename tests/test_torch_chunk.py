@@ -506,6 +506,26 @@ def test_captured_flatten_round_trip_and_cpu_call():
     assert not prog.graphs  # the CPU calls the function
 
 
+def test_captured_flatten_leaves_no_reference_cycle():
+    """Flattening and rebuilding a tree holds no tensor once the caller
+    drops it, with the garbage collector off: a reference cycle would keep a
+    program call's inputs on the device until a collection."""
+    import gc
+    import weakref
+
+    x = torch.ones(3)
+    ref = weakref.ref(x)
+    gc.disable()
+    try:
+        leaves, treedef = captured.flatten({"a": (x, [x]), "b": 2})
+        back = captured.unflatten(treedef, leaves)
+        assert back["a"][1][0] is x
+        del x, leaves, back
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
 # ---------------------------------------------------------------------------
 # the port's bench
 # ---------------------------------------------------------------------------

@@ -69,6 +69,20 @@ gradient through ``WeldingRoach`` equals plain autograd and is not the
 identity; the batched ensemble step with welding equals ``step_members``
 bitwise, one welding call for all members.
 
+Transport and ridging (csrc/transport_ridge.cu, ``transport_cuda``: one
+launch a call, one more a stack of floe-size bins): the kernel equals the
+plain version ``transport.transport_and_ridge_reference`` bitwise on every
+field and diagnostic (NaN in the same places) in float32, float64 and
+bfloat16, for upwind2 and upwind, with and without young ice, at 1216^2
+and at 37 x 53, where no tile divides; one launch on a member-minor stack
+of 3 members equals each member's own call, the grid's mask shared by all;
+the bins go through the stack entry; one call captured in a CUDA graph
+replays twice; NaN in tracers, a stress and a velocity come out where the
+plain version puts them; the gradient through
+``TransportRidge`` and ``AdvectStack`` equals straight autograd; and the
+main path (an eager step, a captured chunk) never runs the plain version
+on the card and counts ``LAUNCHES_A_CALL`` a step.
+
 The step's phases in a captured graph (``Captured.stats["phases"]``): a
 3-step chunk's table lists every node in the step's phase order, its
 ``momentum.substeps`` holds the loop's launches alone, the marks add no
@@ -1243,3 +1257,244 @@ def test_captured_batched_draws_equal_the_member_loop_across_a_restore(cuda):
     _equal_states(once, a.states, "the restored replay")
     assert len(a._program.graphs) == 1 and a._program.stats["generators"] == 2
     assert not torch.equal(a.member_state(1).vt_u, a.member_state(2).vt_u)
+
+
+# ---------------------------------------------------------------------------
+# transport and ridging: one launch of csrc/transport_ridge.cu a call
+# ---------------------------------------------------------------------------
+
+TR_DT, TR_DX = 900.0, 5e3
+DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
+
+
+def _transport_state(shape, dtype_name, seed=0, members=None, bins=0):
+    """A moving state on the card with every branch of transport in reach:
+    open water, fronts of tiny values (subnormal limiter products in
+    float32), young ice that ridges, land and an open boundary. Its planes
+    carry a leading member axis when ``members`` is given (member-minor),
+    ``bins`` floe-size bins when given. Returns (state, grid_arrays)."""
+    import numpy as np
+
+    from nextsim_tpu_torch.core.state import State, state_from_numpy
+
+    rng = np.random.default_rng(seed)
+    lead = () if members is None else (members,)
+    ny, nx = shape
+    cell, node = lead + (ny, nx), lead + (ny + 1, nx + 1)
+    ice = rng.uniform(0, 1, cell) > 0.2
+    u = lambda lo, hi, s=cell: rng.uniform(lo, hi, s)  # noqa: E731
+    conc = u(0.5, 1.0) * ice
+    tiny = 10.0 ** u(-36, -8)
+    a = dict(
+        conc=conc, thick=u(0.2, 2.0) * ice, snow_thick=u(0.0, 0.3) * ice, damage=u(0.0, 1.0),
+        ridge_ratio=u(0.0, 0.3) * ice, tice=rng.uniform(-20.0, -0.3, (3,) + cell),
+        sigma=rng.uniform(-3e4, 3e4, (3,) + cell), sst=u(-1.9, 2.0), sss=u(30.0, 35.0), tsurf_young=u(-10.0, 0.5),
+        h_young=u(0.0, 0.05) * ice, hs_young=np.where(u(0, 1) > 0.7, tiny, u(0.0, 0.01)) * ice,
+        conc_young=u(0.0, 0.25) * ice, random_number=u(0, 1), fyi_fraction=u(0.0, 1.2) * ice,
+        age_det=u(0.0, 3e7) * ice, age=u(0.0, 3e7) * ice, conc_upd=u(-0.05, 0.05), conc_myi=u(0.0, 0.6) * ice,
+        thick_myi=u(-0.1, 1.0) * ice, conc_summer=u(0.0, 1.1), thick_summer=u(-0.1, 2.0), pond_volume=u(-0.01, 0.1),
+        lid_volume=u(-0.01, 0.05), vt_u=u(-0.5, 0.5, node), vt_v=u(-0.5, 0.5, node),
+    )
+    for f in State.__dataclass_fields__:
+        if f not in a and f not in ("conc_fsd", "conc_mech_fsd"):
+            a[f] = np.zeros(node if f in ("ut_u", "ut_v") else cell)
+    if bins:
+        w = rng.uniform(0.0, 1.0, (bins,) + cell) ** 2
+        a["conc_fsd"] = w / w.sum(0) * (conc + a["conc_young"])
+        a["conc_mech_fsd"] = a["conc_fsd"][::-1].copy()
+    state = state_from_numpy(a, device="cuda", dtype=DTYPES[dtype_name])
+    mask = (rng.uniform(0, 1, (ny, nx)) > 0.1).astype(float)
+    mask[:, 0] = 0.0
+    open_mask = np.zeros((ny, nx))
+    open_mask[-1, :] = 1.0
+    on = lambda x: torch.as_tensor(x, dtype=DTYPES[dtype_name], device="cuda")  # noqa: E731
+    return state, {"mask": on(mask), "open_mask": on(open_mask * mask), "delta_x": TR_DX}
+
+
+def _transport_params(second_order=True, young=True):
+    from nextsim_tpu_torch.ops.transport import TransportParams
+
+    return TransportParams(second_order=second_order, use_young_ice=young, newice_type=4 if young else 1)
+
+
+def _same_transport(got, ref, what=""):
+    """Two (state, diag) results: every field and diagnostic bitwise equal
+    where a number, NaN in the same places."""
+    import dataclasses
+
+    (a, da), (b, db) = got, ref
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        assert (x is None) == (y is None), (what, f.name)
+        if x is not None:
+            assert x.dtype == y.dtype and x.shape == y.shape and _same(x.detach(), y.detach()), (what, f.name)
+    assert set(da) == set(db) and all(_same(da[k], db[k]) for k in da), what
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (1216, 1216)])
+@pytest.mark.parametrize("young", [True, False])
+@pytest.mark.parametrize("second_order", [True, False])
+@pytest.mark.parametrize("dtype_name", ["float32", "float64", "bfloat16"])
+def test_transport_kernel_equals_plain(cuda, dtype_name, second_order, young, shape):
+    from nextsim_tpu_torch.ops import transport, transport_cuda
+
+    state, ga = _transport_state(shape, dtype_name, seed=1 + second_order + 2 * young)
+    p = _transport_params(second_order, young)
+    launches = transport_cuda.launches
+    got = transport.transport_and_ridge(state, ga, TR_DT, p)
+    assert transport_cuda.launches == launches + transport_cuda.LAUNCHES_A_CALL
+    ref = transport.transport_and_ridge_reference(state, ga, TR_DT, p)
+    _same_transport(got, ref)
+    assert not torch.equal(ref[0].conc, state.conc) and not torch.equal(ref[0].sigma, state.sigma)
+    assert (got[0].h_young is state.h_young) == (not young)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64", "bfloat16"])
+def test_transport_kernel_on_a_member_stack(cuda, dtype_name):
+    """One launch on a member-minor stack of 3 members equals the plain
+    version on the stack and each member's own call, the grid's mask shared
+    by all (a member stride of 0)."""
+    from nextsim_tpu_torch.ops import transport, transport_cuda
+
+    stack, ga = _transport_state((45, 70), dtype_name, seed=5, members=3)
+    p = _transport_params()
+    launches = transport_cuda.launches
+    got = transport.transport_and_ridge(stack, ga, TR_DT, p)
+    assert transport_cuda.launches == launches + transport_cuda.LAUNCHES_A_CALL
+    _same_transport(got, transport.transport_and_ridge_reference(stack, ga, TR_DT, p), "stack")
+
+    def member(s, m):
+        return s.replace(**{f: (t[:, m] if t.ndim == 4 else t[m]).contiguous() for f, t in vars(s).items()
+                            if isinstance(t, torch.Tensor)})
+
+    for m in range(3):
+        one = transport.transport_and_ridge(member(stack, m), ga, TR_DT, p)
+        _same_transport((member(got[0], m), {k: v[m] for k, v in got[1].items()}), one, f"member {m}")
+
+
+@pytest.mark.parametrize("second_order", [True, False])
+@pytest.mark.parametrize("dtype_name", ["float32", "float64", "bfloat16"])
+def test_transport_kernel_carries_fsd_bins(cuda, dtype_name, second_order):
+    """Floe-size bins (both stacks, on a 2-member stack) through the stack
+    entry: a launch a stack besides the core's, the plain version's bits."""
+    from nextsim_tpu_torch.ops import transport, transport_cuda
+
+    state, ga = _transport_state((40, 33), dtype_name, seed=7, members=2, bins=5)
+    p = _transport_params(second_order)
+    launches = transport_cuda.launches
+    got = transport.transport_and_ridge(state, ga, TR_DT, p)
+    assert transport_cuda.launches == launches + transport_cuda.LAUNCHES_A_CALL + 2
+    _same_transport(got, transport.transport_and_ridge_reference(state, ga, TR_DT, p))
+    assert not torch.equal(got[0].conc_fsd, state.conc_fsd)
+
+
+@pytest.mark.parametrize("dtype_name", ["float32", "float64", "bfloat16"])
+def test_captured_transport_call_replays_twice(cuda, dtype_name):
+    from nextsim_tpu_torch.ops import transport, transport_cuda
+
+    state, ga = _transport_state((64, 96), dtype_name, seed=9)
+    p = _transport_params()
+    ref = transport.transport_and_ridge_reference(state, ga, TR_DT, p)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # the build and a warm call outside the capture
+        transport.transport_and_ridge(state, ga, TR_DT, p)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    launches = transport_cuda.launches
+    with torch.cuda.graph(graph):
+        got = transport.transport_and_ridge(state, ga, TR_DT, p)
+    assert transport_cuda.launches == launches + transport_cuda.LAUNCHES_A_CALL
+    graph.replay()
+    first = got[0].conc.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    _same_transport(got, ref)
+    assert torch.equal(first, got[0].conc)
+
+
+def test_transport_kernel_passes_nans_as_the_plain_version(cuda):
+    """NaN in tracers, a stress and a velocity: the kernel's NaN where the
+    plain version's (clamp, minimum and the gates pass them), so the
+    step's checks still see one."""
+    from nextsim_tpu_torch.ops import transport
+
+    for dtype_name in ("float32", "bfloat16", "float64"):
+        state, ga = _transport_state((48, 40), dtype_name, seed=13)
+        nan = float("nan")
+        fields = {f: getattr(state, f).clone() for f in ("conc", "thick", "damage", "sst", "sigma", "tice", "conc_young",
+                                                         "vt_u", "hs_young")}
+        fields["conc"][5, 7] = nan
+        fields["thick"][20, 30] = nan
+        fields["damage"][0, 0] = nan
+        fields["sst"][47, 39] = nan
+        fields["sigma"][1, 12, 12] = nan
+        fields["tice"][1, 30, 10] = nan
+        fields["conc_young"][40, 20] = nan
+        fields["hs_young"][8, 8] = nan
+        fields["vt_u"][25, 25] = nan
+        state = state.replace(**fields)
+        p = _transport_params()
+        got = transport.transport_and_ridge(state, ga, TR_DT, p)
+        ref = transport.transport_and_ridge_reference(state, ga, TR_DT, p)
+        _same_transport(got, ref, dtype_name)
+        assert bool(torch.isnan(got[0].conc).any()) and bool(torch.isnan(got[0].sigma).any()), dtype_name
+
+
+def test_transport_gradient_on_the_card(cuda):
+    """float64: the gradient through TransportRidge and AdvectStack (the
+    kernel forward) equals straight autograd through the plain version on
+    the card: bitwise for the state's planes and the bins; the velocities,
+    which both Functions read, sum the two parts in another order (1e-14 of
+    the largest)."""
+    from nextsim_tpu_torch.ops import transport, transport_cuda
+
+    base, ga = _transport_state((36, 44), "float64", seed=17, bins=3)
+    p = _transport_params()
+    wrt = ("conc", "thick", "tice", "sigma", "damage", "vt_u", "vt_v", "conc_fsd")
+    gen = torch.Generator("cuda").manual_seed(4)
+
+    def grads(fn):
+        leaves = {f: getattr(base, f).clone().requires_grad_(True) for f in wrt}
+        out, diag = fn(base.replace(**leaves), ga, TR_DT, p)
+        gen.manual_seed(4)
+        loss = sum((torch.rand(getattr(out, f).shape, dtype=torch.float64, device="cuda", generator=gen)
+                    * getattr(out, f)).sum() for f in wrt[:5] + ("age", "ridge_ratio", "conc_fsd", "conc_mech_fsd"))
+        loss = loss + 1e3 * diag["divergence"].sum() + diag["del_ci_ridge_myi"].sum()
+        return out, torch.autograd.grad(loss, list(leaves.values()))
+
+    launches = transport_cuda.launches
+    out, got = grads(transport.transport_and_ridge)
+    assert transport_cuda.launches == launches + transport_cuda.LAUNCHES_A_CALL + 2
+    assert type(out.conc.grad_fn).__name__ == "TransportRidgeBackward"
+    _, ref = grads(transport.transport_and_ridge_reference)
+    for name, r, g in zip(wrt, ref, got):
+        assert float(r.abs().max()) > 0.0, name
+        if name in ("vt_u", "vt_v"):
+            torch.testing.assert_close(g, r, rtol=0.0, atol=1e-14 * float(r.abs().max()), msg=name)
+        else:
+            assert torch.equal(r, g), name
+
+
+def test_main_path_goes_through_the_transport_kernel(cuda, monkeypatch):
+    """464^2 (bench.py's arctic, thermo on): an eager step and a captured
+    3-step chunk never run the plain version on the card; the eager step
+    launches LAUNCHES_A_CALL, the chunk's capture records three calls'
+    launches and each replay counts them."""
+    from nextsim_tpu_torch.ops import transport, transport_cuda
+
+    def plain(*args):
+        raise AssertionError("the plain transport ran on the card")
+
+    over = _bench464(**{"thermo.use_thermo_forcing": True, "ideal_simul.init_SST_limit": 10.0})
+    a = Simulator(Config(overrides=over), device="cuda")
+    monkeypatch.setattr(transport, "transport_and_ridge_reference", plain)
+    launches = transport_cuda.launches
+    a.step_eager()
+    assert transport_cuda.launches == launches + transport_cuda.LAUNCHES_A_CALL
+    a.step_chunk(3)
+    assert a._program.stats["transport_launches"] == 3 * transport_cuda.LAUNCHES_A_CALL
+    launches = transport_cuda.launches
+    a.step_chunk(3)
+    assert transport_cuda.launches == launches + 3 * transport_cuda.LAUNCHES_A_CALL
+    assert bool(torch.isfinite(a.state.conc).all()) and float(a.state.vt_u.abs().max()) > 0.0

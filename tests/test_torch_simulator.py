@@ -714,6 +714,7 @@ SLICE_MODULES = [
     "nextsim_tpu_torch.forcing.providers", "nextsim_tpu_torch.ops.stencil",
     "nextsim_tpu_torch.ops.rheology", "nextsim_tpu_torch.ops.momentum",
     "nextsim_tpu_torch.ops.momentum_cuda", "nextsim_tpu_torch.ops.welding_cuda", "nextsim_tpu_torch.ops.advection",
+    "nextsim_tpu_torch.ops.transport_cuda",
     "nextsim_tpu_torch.ops.transport", "nextsim_tpu_torch.model.params",
     "nextsim_tpu_torch.model.init_state", "nextsim_tpu_torch.model.checks",
     "nextsim_tpu_torch.model.simulator", "nextsim_tpu_torch.model.params_thermo",
