@@ -23,6 +23,11 @@ started from; the traffic mix's driver (``drivers/<driver>.py``, its
 A limit in ``limits/<cell>.json`` is a number, or ``{"limit": x, "except":
 [...]}`` for a number held over every plane but those named (and the
 reason why, under ``"why"``).
+
+The reference is the driver module's ``reference(options, device)`` where
+it defines one (a cell whose path ``Reference`` does not run brings its own
+in a new file), else ``Reference(options, device)``, which refuses the
+options it does not run.
 """
 
 from __future__ import annotations
@@ -92,13 +97,14 @@ def run(got: dict, options: dict, limits: dict, device, control: bool = False) -
     program's place (its initial state, and the driver's ``compare``)."""
     from benchmark import drivers
 
-    ref = Reference(options, device)
+    kind = drivers.load(got["kind"])
+    ref = getattr(kind, "reference", Reference)(options, device)
     with torch.no_grad():
         initial = ref.init_state(got["seeded_field"].numpy())
         program = planes(in_dtype(initial, torch.bfloat16)) if control else host_planes(got["initial"])
         gaps = {"init_gap": relative_gaps(program, planes(initial))}
         del initial
-        gaps.update(drivers.load(got["kind"]).compare(ref, got, device, control))
+        gaps.update(kind.compare(ref, got, device, control))
     out = {}
     for name in ORDER:
         if name in limits:

@@ -13,13 +13,22 @@ A driver module has
   of the last forcing the next call asks for), ``call()`` (one call of the
   window: the model steps it made), ``capture_stats()`` and ``result()``
   (what the check needs, on the host, ``kind`` the module's name);
+  optionally ``counters()``: {name: number} of the program's cumulative
+  counts (calls of a phase, exchanges, launches), whose change over the
+  readers' stretch ``harness.Ctx.counters`` gives;
 * ``steps_a_call_bound(opts, traffic)``: the most model steps a call can
   make, from which the input data's span is sized before the program is
   built;
 * ``compare(ref, got, device, control)``: {number: {label: gap}}, the
   numbers of ``check.ORDER`` that the call's results give against the
   reference (``check.run`` adds ``init_gap`` and takes the worst label);
-  with ``control`` the reference in bfloat16 takes the program's place.
+  with ``control`` the reference in bfloat16 takes the program's place;
+* optionally ``reference(options, device)``: the plain reference of the
+  mix's path, in place of ``reference.model.Reference`` (which refuses the
+  options it does not run): an object with ``init_state(random_number)``
+  (the initial state that ``init_gap`` compares) and whatever ``compare``
+  calls. A path that ``Reference`` does not run brings its own reference
+  here, in new files.
 """
 
 from __future__ import annotations

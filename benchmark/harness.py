@@ -15,7 +15,10 @@ clock, then synchronizes: a rate is every step of the window over the time
 to the end of the last one. With ``trace`` the window's first calls
 (``trace_calls`` of the mix) run under ``torch.profiler`` first; the
 window's ``seconds`` then start after the trace has been read, and the
-per-layer readers take their times from that untraced stretch.
+per-layer readers take their times from that untraced stretch. Over the
+same stretch they get the change in each of the driver's counters, where
+its ``Driver`` has ``counters()``, and the run's options as the program got
+them.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import math
 import os
 import shutil
 import time
+import types
 from pathlib import Path
 from typing import Optional
 
@@ -128,6 +132,8 @@ class Ctx:
     init_s: float
     capture: list  # the stats of each graph captured in set-up
     trace: Optional[object]  # tracing.Trace of the traced calls, or None
+    options: types.MappingProxyType  # the run's options as the program got them, read-only
+    counters: dict  # the change in each of the driver's cumulative counters over that stretch, or {}
 
 
 def _timer_totals(timer) -> dict:
@@ -231,7 +237,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, *, device: str 
         prof.__exit__(None, None, None)
         prof_trace = tracing.from_profiler(prof, wall, traced)
         del prof
-    timer0, spans0 = _timer_totals(driver.timer), dict(driver.spans)
+    timer0, spans0, counters0 = _timer_totals(driver.timer), dict(driver.spans), getattr(driver, "counters", dict)()
     steps = 0
     n_calls = 0
     t0 = time.perf_counter()
@@ -242,7 +248,7 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, *, device: str 
     _sync(device)
     window_s = time.perf_counter() - t0
     memory_peak = int(torch.cuda.max_memory_allocated()) if torch.device(device).type == "cuda" else 0
-    timer1 = _timer_totals(driver.timer)
+    timer1, counters1 = _timer_totals(driver.timer), getattr(driver, "counters", dict)()
 
     from nextsim_tpu_torch.utils import async_writer
 
@@ -254,7 +260,9 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, *, device: str 
               members=driver.members, steps=steps, window_s=window_s,
               timer={k: timer1[k] - timer0.get(k, 0.0) for k in timer1},
               spans={k: driver.spans[k] - spans0.get(k, 0.0) for k in driver.spans},
-              init_s=driver.init_s, capture=driver.capture_stats(), trace=prof_trace)
+              init_s=driver.init_s, capture=driver.capture_stats(), trace=prof_trace,
+              options=types.MappingProxyType(dict(opts)),
+              counters={k: counters1[k] - counters0.get(k, 0) for k in counters1})
 
     if trace:
         metrics = {}

@@ -10,11 +10,16 @@ hydrography by latitude) and do not depend on the seed. A set is written
 into ``<cache>/<key>/`` and marked complete by ``complete.json`` (its bytes
 and seconds) once every file is there, so a run that was cut off leaves no
 half set behind that a later run would read.
+
+A dataset that is none of these is written by a module of its own,
+``inputs/<name>.py``, whose ``write(dir, first_day, days)`` writes its files
+into ``dir``: a later cell adds its dataset as a new file.
 """
 
 from __future__ import annotations
 
 import datetime
+import importlib
 import json
 import shutil
 import time
@@ -139,10 +144,11 @@ WRITERS = {"era5": write_era5, "topaz4_rean": write_topaz}
 
 
 def ensure(cache: Path, datasets, first_day: datetime.datetime, days: int) -> dict:
-    """The directory holding ``datasets`` (names of ``WRITERS`` and
-    ``"etopo"``) over ``days`` days from ``first_day``: written unless a
-    complete set is there. Returns {"dir", "bytes_written", "seconds"}, the
-    bytes and seconds 0 where the set was there already."""
+    """The directory holding ``datasets`` (``"etopo"``, names of ``WRITERS``
+    and of ``inputs/<name>.py`` modules) over ``days`` days from
+    ``first_day``: written unless a complete set is there. Returns {"dir",
+    "bytes_written", "seconds"}, the bytes and seconds 0 where the set was
+    there already."""
     datasets = sorted(datasets)
     key = "_".join(datasets) + f"_{first_day:%Y%m%d}_{days}d_topaz{TOPAZ_SHAPE[0]}x{TOPAZ_SHAPE[1]}"
     d = cache / key
@@ -156,8 +162,10 @@ def ensure(cache: Path, datasets, first_day: datetime.datetime, days: int) -> di
     for name in datasets:
         if name == "etopo":
             write_etopo(d)
-        else:
+        elif name in WRITERS:
             WRITERS[name](d, first_day, days)
+        else:
+            importlib.import_module(f"{__name__}.{name}").write(d, first_day, days)
     n_bytes = sum(p.stat().st_size for p in d.rglob("*") if p.is_file())
     seconds = time.perf_counter() - t0
     done.write_text(json.dumps({"bytes": n_bytes, "seconds": seconds}))
